@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one H100 and check every kernel.
+"""Drive the PyTorch port's main paths on one H100 and check every kernel.
 
     python3 chip_smoke.py                 # on a machine with one H100
 
@@ -7,36 +7,53 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
 
 1. Build: compile the Hopper kernels (``src/repro_torch/kernels/csrc``)
    with ``nvcc`` for sm_90a, one process per source, all at once.
-2. Kernel vs plain version on the card, bit-exact: ``blockhash2`` against
+2. Kernel vs plain version on the card: ``blockhash2`` against
    ``blockhash2_ref`` (the main path's leaf shapes, ragged lengths, every
    dtype width, unaligned storage offsets) and ``diffpack`` against
-   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block).
-3. Main path at full width: a tinyllama-1.1b-shaped state (arXiv:2401.02385:
-   22 layers, d_model 2048, 32 heads / 4 KV heads, d_ff 5632, vocab 32000,
-   untied lm_head; 4.40 GB in f32) generated on the card from a seed goes
-   through the directives with the FTI backend and a CP-dedicated thread:
-   FULL, an in-place sparse update made before the FULL's tail ran, DIFF
-   (exact dirty-block count), a dense update (promoted FULL), another
-   sparse update and DIFF, shutdown, then a restart into a zeros template
-   that must equal the final state bit for bit.  The kernels' launch counts
-   are reset just before and read just after, and must match the leaves
-   hashed and packed.
+   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block), bit
+   for bit; ``flashattn`` against ``flash_attention_ref`` at tinyllama's
+   attention shape (B 4, S 2048, 32 heads of 64) causal and not, and at
+   S 256: bf16 within one bf16 ulp of the output, f32 within 2e-5, and the
+   autograd gradient (kernel forward, plain backward) within 1e-4 of
+   autograd through the plain version, in f32.
+3. The directive path at full width: a tinyllama-1.1b-shaped state
+   (arXiv:2401.02385: 22 layers, d_model 2048, 32 heads / 4 KV heads, d_ff
+   5632, vocab 32000, untied lm_head; 4.40 GB in f32) generated on the
+   card from a seed goes through the directives with the FTI backend and a
+   CP-dedicated thread: FULL, an in-place sparse update made before the
+   FULL's tail ran, DIFF (exact dirty-block count), a dense update
+   (promoted FULL), another sparse update and DIFF, shutdown, then a
+   restart into a zeros template that must equal the final state bit for
+   bit.  The kernels' launch counts are reset just before and read just
+   after, and must match the leaves hashed and packed.
 4. Timing on the card (CUDA events, median of 20 after warm-up) of each
    kernel, its plain version and, where one exists, a PyTorch call
    computing the same function, beside the bound: the larger of bytes over
-   3.35 TB/s and the busiest integer pipe (or the issue rate), counted in
-   the SASS of the kernel as built.
+   3.35 TB/s and the operations (the busiest integer pipe or the
+   instruction dispatch rate, counted in the SASS of the hash as built;
+   the attention's FLOPs over the dense bf16 peak).
+5. Checkpointed training at full width: tinyllama-1.1b's TrainState
+   (13.2 GB: params, mu, nu in f32) with ``REPRO_ATTN_IMPL=flash``, batch
+   4 × 2048 tokens, remat, FTI level 1 with a CP-dedicated thread, in
+   deterministic mode.  Run A: 3 steps, no store.  Run B: 3 steps, a FULL
+   store at step 2 and an injected fault at step 3; a fresh context
+   restores and runs step 3.  Both final states must be equal bit for bit
+   and the loss finite; the flash kernel's launches (reset before, read
+   after) must be two per layer and step.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phase 3 on the CPU with the plain versions and prints no result.
+rehearses phases 3 and 5 on the CPU with the plain versions (phase 5 on
+a reduced config) and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import re
 import shutil
 import statistics
@@ -47,6 +64,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 
 # H100 SXM rates the bounds divide by, at the card's maximum SM clock of
 # 1.98 GHz x 132 SMs.  HBM: NVIDIA's data sheet.  Integer: the data sheet
@@ -59,6 +77,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # issue at most 4 x 32 = 128 lanes per clock, whatever the pipe (the same
 # 128 lanes that give the data sheet's 67 TFLOP/s in float32).
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12          # dense, tensor cores (data sheet)
 PIPE_LANES_PER_S = 64 * 132 * 1.98e9
 ISSUE_LANES_PER_S = 128 * 132 * 1.98e9
 
@@ -268,7 +287,7 @@ def main_path(torch, args, device, ops):
         f"in {restore_s:.2f} s (restarted={ctx2.restarted})")
 
     want_launch = {"blockhash2": 4 * len(named),
-                   "diffpack": 2 * sparse_leaves}
+                   "diffpack": 2 * sparse_leaves, "flashattn": 0}
     log(f"[main] kernel launches: {launches} (expected on the card: "
         f"{want_launch})")
     if device.type == "cuda" and launches != want_launch:
@@ -355,6 +374,65 @@ def check_kernels(torch, device, ops, ref, bh, dp):
     log(f"[check] blockhash2 and diffpack equal their plain versions "
         f"bit for bit (tolerance 0): max_abs_err {worst}")
     return worst
+
+
+def bf16_tolerance(torch, x):
+    """One bf16 ulp at each element's magnitude (8 significant bits),
+    floored at the f32 tolerance 2e-5: near zero, where the softmax
+    average cancels, the f32 rounding of the terms outweighs a bf16 ulp."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7).clamp(min=2e-5)
+
+
+#: (B, S, H, dh) of the training path's attention, and a short sequence
+FLASH_SHAPES = ((4, 2048, 32, 64), (4, 256, 32, 64))
+
+
+def check_flash(torch, device, ops, ref, fa) -> float:
+    """flashattn against flash_attention_ref; the autograd.Function's
+    gradient against autograd through the plain version.  → the largest
+    absolute error of the bf16 outputs (the path's working type)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    worst_bf16 = 0.0
+    for b, s, h, dh in FLASH_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = (torch.randn(b * h, s, dh, generator=gen,
+                                       device=device).to(dtype)
+                           for _ in range(3))
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                case = f"B{b} S{s} H{h} dh{dh} causal={causal} {dtype}"
+                if dtype == torch.bfloat16:
+                    worst_bf16 = max(worst_bf16, float(err.max()))
+                    if not bool((err <= bf16_tolerance(torch, want)).all()):
+                        fail(f"flashattn {case}: beyond one bf16 ulp")
+                elif float(err.max()) > 2e-5:
+                    fail(f"flashattn {case}: max_abs_err "
+                         f"{float(err.max()):.3g} > 2e-5")
+                log(f"[check] flashattn {case}: max_abs_err "
+                    f"{float(err.max()):.3g}")
+                del q, k, v, got, want, err
+    # the gradient, f32, at the training shape, causal
+    b, s, h, dh = FLASH_SHAPES[0]
+    q, k, v, w = (torch.randn(b, s, h, dh, generator=gen, device=device)
+                  for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (ops.flash_attention_bshd(*leaves, causal=True) * w).sum().backward()
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (fa.from_bh(ref.flash_attention_ref(*(fa.to_bh(x) for x in plain),
+                                        causal=True), b) * w).sum().backward()
+    gerr = max(float((a.grad - c.grad).abs().max())
+               for a, c in zip(leaves, plain))
+    if gerr > 1e-4:
+        fail(f"flash gradient differs from the plain autograd: {gerr:.3g}")
+    log(f"[check] flashattn: bf16 within one bf16 ulp (max_abs_err "
+        f"{worst_bf16:.3g}), f32 within 2e-5; gradient (f32, B{b} S{s}) "
+        f"within {gerr:.3g} of autograd through the plain version (limit "
+        f"1e-4)")
+    return worst_bf16
 
 
 # --------------------------------------------------------------------------- #
@@ -510,6 +588,289 @@ def time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word):
     return out
 
 
+def time_flash(torch, device, ref, fa) -> dict:
+    """flashattn at the training path's shape (bf16, causal) beside its
+    bound, its plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    b, s, h, dh = FLASH_SHAPES[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    q, k, v = (torch.randn(b * h, s, dh, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
+    out = {}
+    for causal in (True, False):
+        ms = device_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                         causal=causal))
+        plain = device_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal))
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        # the (query, key) pairs this input needs: the lower triangle with
+        # its diagonal when causal; two products of dh MACs each per pair
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        flops = 4 * dh * pairs
+        moved = 4 * q.numel() * q.element_size()       # q, k, v, o once
+        times = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+                 "operations": flops / BF16_FLOPS_PER_S * 1e3}
+        by = max(times, key=times.get)
+        out[causal] = dict(
+            ms=ms, plain_ms=plain, bound_ms=times[by], bound_by=by,
+            library_ms=lib, work=f"B{b} S{s} H{h} dh{dh} bf16 "
+            f"causal={causal}: {flops:.4g} FLOPs, {moved} B")
+        log(f"[time] flashattn causal={causal}: {ms:.4f} ms (bound "
+            f"{times[by]:.4f} ms by {by}: {flops:.4g} FLOPs at 989 TFLOP/s "
+            f"{times['operations']:.4f} ms, {moved} B at 3.35 TB/s "
+            f"{times['bytes']:.4f} ms; plain {plain:.4f} ms; "
+            f"scaled_dot_product_attention {lib:.4f} ms)")
+    return out[True]
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: checkpointed training at full width
+# --------------------------------------------------------------------------- #
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+
+
+def sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+#: device-time groups of a training step, by kernel name (first match)
+_KERNEL_GROUPS = (
+    ("flash attention kernel", ("flash_fwd_kernel",)),
+    ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("softmax / logsumexp", ("softmax", "logsumexp")),
+    ("reductions", ("reduce_kernel",)),
+    ("embedding / gather", ("embedding", "gather", "index", "scatter")),
+    ("copies and casts", ("copy", "cat", "memcpy", "memset", "unrolled")),
+    ("elementwise", ("elementwise", "foreach")),
+)
+
+
+def profile_step(torch, step) -> None:
+    """One more training step under ``torch.profiler``: device time by
+    kernel group and the device's idle share of the step.  Prints that no
+    device time was recorded if the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    groups, top = {}, []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue                     # an operator, not a kernel
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0)) / 1e3   # ms
+        if dev <= 0:
+            continue
+        name = ev.key.lower()
+        group = next((g for g, keys in _KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + dev
+        top.append((dev, ev.count, ev.key[:90]))
+    busy = sum(groups.values())
+    if busy == 0:
+        log("[profile] torch.profiler recorded no device time")
+        return
+    log(f"[profile] one step under torch.profiler: {wall * 1e3:.1f} ms "
+        f"wall, {busy:.1f} ms of device time, idle share "
+        f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+    for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
+        log(f"[profile]   {g}: {ms:.1f} ms ({ms / busy:.1%})")
+    for ms, n, key in sorted(top, reverse=True)[:10]:
+        log(f"[profile]   kernel {ms:.1f} ms x{n}: {key}")
+
+
+def training_path(torch, args, device, ops) -> dict:
+    """Run A: TRAIN_STEPS steps, no store.  Run B: a FULL store at step 2,
+    an injected fault at step 3, then a fresh context restores and runs
+    step 3.  The final TrainStates must be equal bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.formats import tensor_to_numpy
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.data.synthetic import init_data_state
+    from repro_torch.ft.failures import FaultInjector, SimulatedFault
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.loop import LevelSchedule, LoopConfig, run_training
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.state import init_train_state, prng_key
+    from repro_torch.train.step import (make_train_step,
+                                        use_deterministic_algorithms)
+
+    on_card = device.type == "cuda"
+    cfg, batch, seq = get_arch("tinyllama-1.1b"), TRAIN_BATCH, TRAIN_SEQ
+    if not on_card:                                  # the CPU rehearsal
+        cfg, batch, seq = cfg.reduced(), 2, 64
+    os.environ["REPRO_ATTN_IMPL"] = "flash"
+    if on_card:
+        use_deterministic_algorithms()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t = time.time()
+    state0 = init_train_state(
+        model.init(torch.Generator(device=device).manual_seed(SEED)),
+        prng_key(SEED + 1), init_data_state(SEED))
+    sync(torch, device)
+    named0 = flatten_named(state0)
+    nbytes = sum(x.numel() * x.element_size() for x in named0.values())
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"TrainState {len(named0)} leaves, {nbytes / 1e9:.2f} GB on {device}, "
+        f"made in {time.time() - t:.1f} s; batch {batch} x {seq}, remat, "
+        f"REPRO_ATTN_IMPL=flash")
+    del named0
+    step_fn = make_train_step(
+        model, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1),
+        remat=True)
+    steps = []
+
+    def timed(run):
+        def step(state, b):
+            sync(torch, device)
+            n0, t0 = fa.LAUNCHES.n, time.time()
+            new, met = step_fn(state, b)
+            sync(torch, device)
+            steps.append((run, int(new.step), time.time() - t0,
+                          fa.LAUNCHES.n - n0, float(met["loss"])))
+            return new, met
+        return step
+
+    def ctx_cfg(name):
+        return CheckpointConfig(dir=str(TRAIN_DIR / name), backend="fti",
+                                dedicated_thread=True, objstore=False)
+
+    def quiet(*_):
+        pass
+
+    levels = LevelSchedule(l2_every=0, l3_every=0, l4_every=0)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ops.reset_launch_counts()
+
+    # run A: straight through, no store
+    ctx = CheckpointContext(ctx_cfg("a"))
+    out = run_training(model, timed("A"), state0, ctx, LoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, levels=levels),
+        batch, seq, log=quiet)
+    ctx.shutdown()
+    named_a = flatten_named(out["state"])
+    final_a = {k: tensor_to_numpy(v) for k, v in named_a.items()}
+    device_a = {k: v.device for k, v in named_a.items()}
+    del named_a
+    loss_a = out["loss"]
+    del out
+
+    # run B: FULL store at step 2, fault at step 3, restore, step 3
+    loop_b = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=2, levels=levels)
+    reports, blocked = [], {}
+    ctx = CheckpointContext(ctx_cfg("b")).observe_store_reports(
+        reports.append)
+    store = ctx.store
+
+    def timed_store(state, **kw):
+        t0 = time.time()
+        r = store(state, **kw)
+        if kw.get("if_", True):
+            blocked[kw["id"]] = time.time() - t0
+        return r
+
+    ctx.store = timed_store
+    try:
+        run_training(model, timed("B"), state0, ctx, loop_b, batch, seq,
+                     injector=FaultInjector(TRAIN_STEPS, 1.0), log=quiet)
+    except SimulatedFault as e:
+        log(f"[train] run B: {e}")
+    else:
+        fail("run B: the injected fault did not fire")
+    t = time.time()
+    ctx.shutdown()                       # the FULL's tail finishes here
+    drain_s = time.time() - t
+    if [r.ckpt_id for r in reports] != [2]:
+        fail(f"run B committed stores {[r.ckpt_id for r in reports]} != [2]")
+    r = reports[0]
+    log(f"[train] store 2: kind={r.kind} bytes_payload={r.bytes_payload} "
+        f"plan_s={r.plan_seconds:.4f} store_call_s={blocked[2]:.4f} "
+        f"total_s={r.seconds:.4f} (shutdown waited {drain_s:.2f} s for the "
+        f"tail)")
+
+    ctx = CheckpointContext(ctx_cfg("b"))
+    load, restore = ctx.load, {}
+
+    def timed_load(state, **kw):
+        t0 = time.time()
+        got = load(state, **kw)
+        sync(torch, device)
+        restore["s"] = time.time() - t0
+        return got
+
+    ctx.load = timed_load
+    out = run_training(model, timed("B restarted"), state0, ctx, loop_b,
+                       batch, seq, log=quiet)
+    ctx.shutdown()
+    launches = ops.launch_counts()
+    if not out["restarted"]:
+        fail("run B's restart found no checkpoint")
+    log(f"[train] restore: {restore['s']:.2f} s (fresh context, FULL of "
+        f"{r.bytes_payload} B onto {device})")
+
+    for run, step, sec, n, loss in steps:
+        log(f"[train] run {run} step {step}: {sec:.3f} s, "
+            f"{batch * seq / sec:.0f} tokens/s, flash launches {n}, "
+            f"loss {loss:.6f}")
+    want_per_step = 2 * cfg.n_layers          # forward + remat recompute
+    if not all(math.isfinite(x[4]) for x in steps):
+        fail("a training loss is not finite")
+    if [x[:2] for x in steps] != [("A", 1), ("A", 2), ("A", 3), ("B", 1),
+                                   ("B", 2), ("B", 3),
+                                   ("B restarted", 3)]:
+        fail(f"unexpected step sequence {[x[:2] for x in steps]}")
+    if on_card and (any(x[3] != want_per_step for x in steps) or
+                    launches["flashattn"] != want_per_step * len(steps)):
+        fail(f"flash launches {launches['flashattn']} (per step "
+             f"{[x[3] for x in steps]}) != {want_per_step} per step")
+
+    bad = []
+    for k, v in flatten_named(out["state"]).items():
+        got = tensor_to_numpy(v)
+        if (v.device != device_a[k] or got.dtype != final_a[k].dtype
+                or not np.array_equal(got.reshape(-1).view(np.uint8),
+                                      final_a[k].reshape(-1).view(np.uint8))):
+            bad.append(k)
+    if bad:
+        fail(f"resumed TrainState differs from run A: {bad[:5]}")
+    if out["loss"] != loss_a:
+        fail(f"resumed loss {out['loss']} != run A's {loss_a}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if on_card:
+        from repro_torch.data.synthetic import next_batch
+        b, _ = next_batch(out["state"].data_state, cfg, batch, seq, device)
+        profile_step(torch, lambda: step_fn(out["state"], b))
+    log(f"[train] resumed TrainState equals run A's bit for bit "
+        f"({len(final_a)} leaves, step {int(out['state'].step)}, loss "
+        f"{loss_a:.6f}); kernel launches {launches}; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    del out, final_a, state0
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if on_card:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "restore_s": restore["s"],
+            "report": r, "peak_bytes": peak}
+
+
 # --------------------------------------------------------------------------- #
 
 def main() -> None:
@@ -525,15 +886,20 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
+    # the fixed cuBLAS workspace of deterministic mode (phase 5), read when
+    # cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     from repro_torch.kernels import blockhash as bh
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import diffpack as dp
+    from repro_torch.kernels import flashattn as fa
 
     if args.device == "cpu":
         main_path(torch, args, torch.device("cpu"), ops)
-        log("chip_smoke: CPU rehearsal of the main path passed "
+        training_path(torch, args, torch.device("cpu"), ops)
+        log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
     if args.width_div != 1 or args.block_bytes != BLOCK_BYTES:
@@ -543,10 +909,14 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"[env] {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
 
     t = time.time()
-    logs = build.compile_all(["blockhash2", "diffpack"])
-    log(f"[build] nvcc sm_90a, 2 sources in parallel: {time.time() - t:.1f} s")
+    sources = ["blockhash2", "diffpack", "flashattn"]
+    logs = build.compile_all(sources)
+    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
+        f"{time.time() - t:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -557,9 +927,21 @@ def main() -> None:
         f"words in the full-block loop; per word: " + ", ".join(
             f"{k} {v:.4f}" for k, v in per_word.items()))
 
+    t = time.time()
     worst = check_kernels(torch, device, ops, ref, bh, dp)
+    worst["flashattn"] = check_flash(torch, device, ops, ref, fa)
+    log(f"[phase] kernel checks: {time.time() - t:.1f} s")
+    t = time.time()
     state, ids2, launches = main_path(torch, args, device, ops)
+    log(f"[phase] directive path: {time.time() - t:.1f} s")
+    t = time.time()
     times = time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word)
+    times["flashattn"] = time_flash(torch, device, ref, fa)
+    log(f"[phase] timing: {time.time() - t:.1f} s")
+    del state
+    t = time.time()
+    train = training_path(torch, args, device, ops)
+    log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -567,22 +949,30 @@ def main() -> None:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
+    # each kernel's launches come from the path that runs it, counted from
+    # zero over that path: the directive path (phase 3) for the hash and
+    # the pack, the training path (phase 5) for attention
+    paths = {"directive": launches, "training": train["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
-                       "src/repro/kernels/blockhash.py:34"),
+                       "src/repro/kernels/blockhash.py:34", "directive"),
         "diffpack": ("src/repro_torch/kernels/csrc/diffpack.cu",
-                     "src/repro/kernels/diffpack.py:22"),
+                     "src/repro/kernels/diffpack.py:22", "directive"),
+        "flashattn": ("src/repro_torch/kernels/csrc/flashattn.cu",
+                      "src/repro/kernels/flashattn.py:35", "training"),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, path) in meta.items():
         r = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": paths[path][name],
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "work": r["work"], "layers": args.layers})
+            "work": r["work"], "path": path,
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "layers": args.layers if path == "directive" else 22})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

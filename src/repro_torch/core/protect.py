@@ -4,13 +4,15 @@ The PyTorch counterpart of ``repro.core.protect``.  Flattening extracts
 (path, dtype, shape, device) from the state the user names; the user writes
 ``ctx.store(state, ...)`` and nothing is hand-serialized.
 
-State trees are nested ``dict`` / ``list`` / ``tuple`` containers whose
-leaves are ``torch.Tensor``s (or numpy arrays / Python scalars).  Paths and
-leaf order equal the JAX package's for the same tree: dict keys are walked
-in *sorted* order (as jax's pytree registry does), not insertion order (as
-``torch.utils._pytree`` does), and each key is rendered exactly as jax's
-``keystr`` would render it, so both packages name and order the leaves of
-one checkpoint identically.
+State trees are nested ``dict`` / ``list`` / ``tuple`` / ``NamedTuple``
+containers whose leaves are ``torch.Tensor``s (or numpy arrays / Python
+scalars).  Paths and leaf order equal the JAX package's for the same tree:
+dict keys are walked in *sorted* order (as jax's pytree registry does), not
+insertion order (as ``torch.utils._pytree`` does), and each key is rendered
+exactly as jax's ``keystr`` would render it; a NamedTuple's children are
+named by field, in field order, as jax names them (``TrainState.step`` is
+``step``), while plain tuples and lists keep index names.  So both packages
+name and order the leaves of one checkpoint identically.
 
 Selectors are the analogue of *self-iterative data expressions* (§5.2):
 ``"params/layers/*/wq"`` expands over the tree exactly like
@@ -173,16 +175,28 @@ def _key_str(k) -> str:
     return s
 
 
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree: Any) -> List:
+    """(path component, child) pairs of a container in jax's leaf order:
+    sorted dict keys, a NamedTuple's fields in field order, list and tuple
+    indices."""
+    if isinstance(tree, dict):
+        return [(_key_str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return list(zip(tree._fields, tree))
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
 def _walk(tree: Any, prefix: List[str], out: List):
     """Depth-first (path components, leaf) pairs in jax's leaf order."""
     if tree is None:
         return                           # jax: None is an empty subtree
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            _walk(tree[k], prefix + [_key_str(k)], out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _walk(v, prefix + [str(i)], out)
+    if isinstance(tree, (dict, list, tuple)):
+        for key, child in _children(tree):
+            _walk(child, prefix + [key], out)
     else:
         out.append(("/".join(prefix), tree))
 
@@ -215,12 +229,12 @@ def unflatten_named(named: Dict[str, Any], template: Any,
         return type(template)(
             (k, unflatten_named(named, v, sub(_key_str(k))))
             for k, v in template.items())
+    if _is_namedtuple(template):
+        return type(template)(*(unflatten_named(named, v, sub(f))
+                                for f, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
-        items = [unflatten_named(named, v, sub(str(i)))
-                 for i, v in enumerate(template)]
-        if isinstance(template, tuple) and hasattr(template, "_fields"):
-            return type(template)(*items)          # namedtuple
-        return type(template)(items)
+        return type(template)(unflatten_named(named, v, sub(str(i)))
+                              for i, v in enumerate(template))
     if prefix not in named:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")
     return named[prefix]

@@ -1,8 +1,14 @@
-"""Public entry points for the checkpoint kernels, dispatched by device.
+"""Public entry points for the kernels, dispatched by device.
 
 A CUDA tensor launches the hand-written Hopper kernel (and raises if it
 cannot be built or launched); a CPU tensor takes the plain PyTorch version
 in ``ref.py``.  Nothing falls back from one to the other.
+
+Attention (:func:`flash_attention`, :func:`flash_attention_bshd`) is
+differentiable: a ``torch.autograd.Function`` whose forward is the kernel
+(or, on the CPU, the plain version) and whose backward is the exact
+gradient in plain PyTorch (``ref.flash_attention_vjp_ref``).  The JAX
+package has no backward kernel either: its Pallas kernel is forward only.
 
 Digest tables and packed blocks are ``torch.int32`` tensors carrying u32
 bits; :func:`u32_numpy` turns them into the ``np.uint32`` arrays the JAX
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.kernels import blockhash as bh
 from repro_torch.kernels import diffpack as dp
+from repro_torch.kernels import flashattn as fa
 from repro_torch.kernels import ref
 
 DEFAULT_BLOCK_BYTES = 65_536      # 64 KiB — FTI dCP-scale block granularity
@@ -86,14 +93,55 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk):
+        if q.is_cuda:
+            out = fa.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+        else:
+            _check_device(q)
+            fa.check_shapes(q, k, v, bq, bk)
+            out = ref.flash_attention_ref(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_vjp_ref(q, k, v, dout,
+                                                 causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = fa.DEFAULT_BQ,
+                    bk: int = fa.DEFAULT_BK) -> torch.Tensor:
+    """(BH, S, dh), (BH, Sk, dh) ×2 → (BH, S, dh) in q's dtype, with a
+    gradient.  The reference's shape contract holds on both devices."""
+    return _FlashAttention.apply(q, k, v, causal, bq, bk)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, bq: int = fa.DEFAULT_BQ,
+                         bk: int = fa.DEFAULT_BK) -> torch.Tensor:
+    """(B, S, H, dh) layout of :func:`flash_attention` (KV already repeated
+    to H heads)."""
+    o = flash_attention(fa.to_bh(q), fa.to_bh(k), fa.to_bh(v),
+                        causal=causal, bq=bq, bk=bk)
+    return fa.from_bh(o, q.shape[0])
+
+
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
-    return {"blockhash2": bh.LAUNCHES.n, "diffpack": dp.LAUNCHES.n}
+    return {"blockhash2": bh.LAUNCHES.n, "diffpack": dp.LAUNCHES.n,
+            "flashattn": fa.LAUNCHES.n}
 
 
 def reset_launch_counts() -> None:
     bh.LAUNCHES.reset()
     dp.LAUNCHES.reset()
+    fa.LAUNCHES.reset()
 
 
 def dirty_indices(h_new: np.ndarray, h_old: Optional[np.ndarray]

@@ -31,6 +31,35 @@ ctx2 = CheckpointContext(cfg)
 got = ctx2.load({"x": torch.zeros(4096)})
 ctx2.shutdown()
 assert ctx2.restarted and torch.equal(got["x"], x)
+
+# a reduced training step through the flash path, a store, a restore
+import os
+os.environ["REPRO_ATTN_IMPL"] = "flash"
+from repro_torch.configs import get_arch
+from repro_torch.data.synthetic import init_data_state, next_batch
+from repro_torch.models.zoo import build_model
+from repro_torch.core.protect import flatten_named
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.state import init_train_state, prng_key
+from repro_torch.train.step import make_train_step
+acfg = get_arch("tinyllama-1.1b").reduced()
+model = build_model(acfg)
+st = init_train_state(model.init(torch.Generator().manual_seed(0)),
+                      prng_key(1), init_data_state(0))
+batch, ds = next_batch(st.data_state, acfg, 2, 32)
+st, met = make_train_step(model, AdamWConfig())(st, batch)
+st = st._replace(data_state=ds)
+assert torch.isfinite(met["loss"]) and int(st.step) == 1
+tcfg = CheckpointConfig(dir=d + "/train", backend="fti", objstore=False)
+ctx3 = CheckpointContext(tcfg)
+ctx3.store(st, id=1, level=1)
+ctx3.shutdown()
+ctx4 = CheckpointContext(tcfg)
+back = ctx4.load(init_train_state(model.init(torch.Generator().manual_seed(9)),
+                                  prng_key(0), init_data_state(0)))
+ctx4.shutdown()
+a, b = flatten_named(st), flatten_named(back)
+assert ctx4.restarted and all(torch.equal(a[k], b[k]) for k in a)
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 print("isolated-ok")
@@ -48,7 +77,13 @@ def test_main_path_runs_without_jax_or_the_reference_package():
 def test_no_module_of_the_port_imports_jax_or_repro():
     """Every import statement in src/repro_torch, lazy ones included."""
     bad = []
-    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+    paths = sorted((SRC / "repro_torch").rglob("*.py"))
+    scanned = {str(p.relative_to(SRC / "repro_torch")) for p in paths}
+    assert {"models/attention.py", "models/transformer.py",
+            "kernels/flashattn.py", "train/step.py", "train/loop.py",
+            "launch/train.py", "data/synthetic.py",
+            "configs/base.py"} <= scanned
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -64,15 +99,18 @@ def test_no_module_of_the_port_imports_jax_or_repro():
 
 
 def test_chip_smoke_main_path_rehearses_on_cpu():
-    """chip_smoke.py's main path (FULL, in-place update before the async
-    tail, DIFF with the exact dirty count, promoted FULL, DIFF, restart) at
-    a tiny width with the plain versions."""
+    """chip_smoke.py's main paths at a tiny width with the plain versions:
+    the directive path (FULL, in-place update before the async tail, DIFF
+    with the exact dirty count, promoted FULL, DIFF, restart) and the
+    checkpointed training (run A vs store, fault, restore, resume) on a
+    reduced config."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
          "--width-div", "16", "--block-bytes", "256"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "dirty blocks: store 2" in out.stdout
+    assert "resumed TrainState equals run A's bit for bit" in out.stdout
     assert '"ok"' not in out.stdout            # a CPU run prints no result
 
 

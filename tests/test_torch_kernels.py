@@ -23,6 +23,7 @@ from repro_torch.core.formats import numpy_to_tensor
 from repro_torch.kernels import blockhash as bh
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import diffpack as dp
+from repro_torch.kernels import flashattn as fa
 
 
 def words(a: np.ndarray) -> torch.Tensor:
@@ -136,12 +137,17 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     x = torch.arange(5000, dtype=torch.float32)
     ops.blockhash(x, 256)
     ops.pack_dirty(x, np.array([1, 2], np.int32), 256)
-    assert ops.launch_counts() == {"blockhash2": 0, "diffpack": 0}
+    qkv = x[:4096].reshape(2, 32, 64)
+    ops.flash_attention(qkv, qkv, qkv)
+    assert ops.launch_counts() == {"blockhash2": 0, "diffpack": 0,
+                                   "flashattn": 0}
     # the kernel wrappers themselves refuse CPU tensors: no silent path
     with pytest.raises(ValueError, match="CUDA tensor"):
         bh.blockhash2(x, 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
         dp.diffpack(x, torch.zeros(1, dtype=torch.int32), 256)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention(qkv, qkv, qkv)
     with pytest.raises(IndexError, match="outside"):
         ops.pack_dirty(x, np.array([0, 79], np.int32), 256)
     with pytest.raises(ValueError, match="no checkpoint kernel"):
