@@ -9,9 +9,12 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    with ``nvcc`` for sm_90a, one process per source, all at once.
 2. Kernel vs plain version on the card: ``blockhash2`` against
    ``blockhash2_ref`` (the main path's leaf shapes, ragged lengths, every
-   dtype width, unaligned storage offsets) and ``diffpack`` against
-   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block), bit
-   for bit; ``flashattn`` against ``flash_attention_ref`` at tinyllama's
+   dtype width, unaligned storage offsets), ``diffpack`` against
+   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block) and
+   ``diffunpack`` against ``diffunpack_ref`` (the same counts into a zeros
+   and a random base, ragged last block, every dtype width, unaligned
+   storage offsets, a 0-byte leaf), bit for bit; ``flashattn`` against
+   ``flash_attention_ref`` at tinyllama's
    attention shape (B 4, S 2048, 32 heads of 64) causal and not, and at
    S 256: bf16 within one bf16 ulp of the output, f32 within 2e-5, and the
    autograd gradient (kernel forward, plain backward) within 1e-4 of
@@ -23,9 +26,10 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    CP-dedicated thread: FULL, an in-place sparse update made before the
    FULL's tail ran, DIFF (exact dirty-block count), a dense update
    (promoted FULL), another sparse update and DIFF, shutdown, then a
-   restart into a zeros template that must equal the final state bit for
-   bit.  The kernels' launch counts are reset just before and read just
-   after, and must match the leaves hashed and packed.
+   restart into a zeros template on the card, which replays the last DIFF
+   there (diffunpack) and must equal the final state bit for bit.  The
+   kernels' launch counts are reset just before and read just after, and
+   must match the leaves hashed, packed and unpacked.
 4. Timing on the card (CUDA events, median of 20 after warm-up) of each
    kernel, its plain version and, where one exists, a PyTorch call
    computing the same function, beside the bound: the larger of bytes over
@@ -40,13 +44,23 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    restores and runs step 3.  Both final states must be equal bit for bit
    and the loss finite; the flash kernel's launches (reset before, read
    after) must be two per layer and step.
+6. The rest of the main path, with the default ``CheckpointConfig``
+   (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
+   same tinyllama-1.1b-shaped state (depth ``--objstore-layers``): a FULL
+   L4 store, a sparse update, a DIFF L4 store (the second store's uploaded
+   bytes against the first's); the node-local and global directories
+   wiped, a fresh context restores from the object store alone, replaying
+   the DIFF on the card, bit-exact.  Then an incremental store in two
+   parts, a DIFF with the exact dirty-block count and a bit-exact restore;
+   and one SCR FULL store and restart, bit-exact.  The CDC chunker's rate
+   on this host is measured on 256 MiB of random bytes.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3 and 5 on the CPU with the plain versions (phase 5 on
-a reduced config) and prints no result.
+rehearses phases 3, 5 and 6 on the CPU with the plain versions (phase 5
+on a reduced config) and prints no result.
 """
 from __future__ import annotations
 
@@ -65,6 +79,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+OBJ_DIR = ROOT / "build" / "chip_smoke_objstore"
 
 # H100 SXM rates the bounds divide by, at the card's maximum SM clock of
 # 1.98 GHz x 132 SMs.  HBM: NVIDIA's data sheet.  Integer: the data sheet
@@ -93,6 +108,8 @@ _ALU_PIPE_OPS = {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
 
 BLOCK_BYTES = 65_536
 SEED = 0
+#: decoder layers of phase 6 (see --objstore-layers)
+OBJSTORE_LAYERS = 22
 
 
 def fail(msg: str) -> None:
@@ -238,7 +255,7 @@ def main_path(torch, args, device, ops):
     ctx.shutdown()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    store_launches = ops.launch_counts()
     stages = stage_seconds(ttrace.tracer().events())
     ttrace.disable()
 
@@ -268,7 +285,9 @@ def main_path(torch, args, device, ops):
     if by_id[4].kind != CHK_DIFF:
         fail("store 4 is not a DIFF")
 
-    # restart: a fresh context restores into a zeros template on the device
+    # restart: a fresh context restores into a zeros template on the device;
+    # the FULL (store 3) is decoded on the host and placed once, store 4's
+    # delta is scattered into it on the device
     t = time.time()
     ctx2 = CheckpointContext(cfg)
     template = {k: torch.zeros_like(v) for k, v in named.items()}
@@ -277,6 +296,7 @@ def main_path(torch, args, device, ops):
     if device.type == "cuda":
         torch.cuda.synchronize()
     restore_s = time.time() - t
+    launches = ops.launch_counts()
     if not ctx2.restarted:
         fail("restart found no checkpoint")
     bad = [k for k, v in flatten_named(restored).items()
@@ -284,16 +304,54 @@ def main_path(torch, args, device, ops):
     if bad:
         fail(f"restored leaves differ from the final state: {bad[:5]}")
     log(f"[main] restore: {len(named)} leaves bit-exact on {device} "
-        f"in {restore_s:.2f} s (restarted={ctx2.restarted})")
+        f"in {restore_s:.2f} s (FULL 3 + DIFF 4, the DIFF replayed on "
+        f"{device}) (restarted={ctx2.restarted})")
 
     want_launch = {"blockhash2": 4 * len(named),
-                   "diffpack": 2 * sparse_leaves, "flashattn": 0}
-    log(f"[main] kernel launches: {launches} (expected on the card: "
-        f"{want_launch})")
+                   "diffpack": 2 * sparse_leaves,
+                   "diffunpack": sparse_leaves, "flashattn": 0}
+    log(f"[main] kernel launches: stores {store_launches}, stores and "
+        f"restore {launches} (expected on the card: {want_launch})")
     if device.type == "cuda" and launches != want_launch:
-        fail("launch counts do not match the leaves hashed and packed")
+        fail("launch counts do not match the leaves hashed, packed and "
+             "unpacked")
+    compare_replay(torch, cfg, named, device)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    return state, ids2, launches
+    return state, ids2, ids4, launches, restore_s
+
+
+def compare_replay(torch, cfg, named, device) -> None:
+    """The same restore (FULL 3 + DIFF 4) two ways, in turns host, device,
+    device, host: the numpy replay on the host, every leaf then copied to
+    the device (the JAX package's restore, and this port's before it
+    replayed on the device), against the replay on the device.  Both must
+    give the final state's bytes.  Prints the seconds of each."""
+    from repro_torch.core.context import CheckpointContext
+    from repro_torch.core.formats import numpy_to_tensor
+
+    def restore(on_device: bool) -> float:
+        sync(torch, device)
+        t = time.time()
+        ctx = CheckpointContext(cfg)
+        got, _ = ctx.tcl.backend.engine.load_latest(
+            devices={k: device for k in named} if on_device else None)
+        got = {k: v if isinstance(v, torch.Tensor)
+               else numpy_to_tensor(v, device) for k, v in got.items()}
+        ctx.shutdown()
+        sync(torch, device)
+        seconds = time.time() - t
+        bad = [k for k, v in named.items() if not torch.equal(got[k], v)]
+        if bad:
+            fail(f"{'device' if on_device else 'host'} replay differs from "
+                 f"the final state: {bad[:5]}")
+        return seconds
+
+    secs = {True: [], False: []}
+    for on_device in (False, True, True, False):
+        secs[on_device].append(restore(on_device))
+    log(f"[main] restore of FULL 3 + DIFF 4 in turns (s): host replay "
+        f"{secs[False][0]:.2f}, {secs[False][1]:.2f}; device replay "
+        f"{secs[True][0]:.2f}, {secs[True][1]:.2f} (same bytes)")
 
 
 # --------------------------------------------------------------------------- #
@@ -310,7 +368,7 @@ def u32_max_abs_diff(torch, a, b) -> int:
 
 def check_kernels(torch, device, ops, ref, bh, dp):
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    worst = {"blockhash2": 0, "diffpack": 0}
+    worst = {"blockhash2": 0, "diffpack": 0, "diffunpack": 0}
 
     def hash_case(name, x, bb=BLOCK_BYTES):
         got = bh.blockhash2(x, bb)
@@ -371,8 +429,82 @@ def check_kernels(torch, device, ops, ref, bh, dp):
               np.array([1, 0], np.int32))
     pack_case("block_bytes 256", f[:10_001], np.arange(0, 157, 3,
                                                         dtype=np.int32), 256)
-    log(f"[check] blockhash2 and diffpack equal their plain versions "
-        f"bit for bit (tolerance 0): max_abs_err {worst}")
+    def unpack_case(name, x, idx, rows=None, bb=BLOCK_BYTES):
+        """Scatter ``rows`` (default: random u32 words) into ``x`` at
+        ``idx`` with the kernel, in place; the plain version scatters into
+        the padded block copy of the same base; the leaf's bytes must be
+        the first bytes of that result."""
+        nbytes = x.numel() * x.element_size()
+        idx_t = torch.from_numpy(idx).to(device)
+        if rows is None:
+            rows = rand_u32(len(idx), bb // 4)
+        base = ops.as_u32_blocks(x, bb)[0]
+        want = ref.diffunpack_ref(base, rows, idx_t)
+        got = dp.diffunpack(x, rows, idx_t, bb)
+        torch.cuda.synchronize()
+        if got is not x:
+            fail(f"diffunpack {name}: did not return its target")
+        want_leaf = want.reshape(-1).view(torch.uint8)[:nbytes]
+        got_u32 = ops.as_u32_blocks(x, bb)[0]
+        want_u32 = torch.zeros_like(got_u32).reshape(-1).view(torch.uint8)
+        want_u32[:nbytes] = want_leaf
+        err = u32_max_abs_diff(torch, got_u32,
+                               want_u32.view(torch.int32).reshape(
+                                   got_u32.shape))
+        worst["diffunpack"] = max(worst["diffunpack"], err)
+        if err:
+            fail(f"diffunpack {name}: differs from diffunpack_ref")
+
+    for k in (1, 7, 2000):
+        idx = np.sort(rng.choice(nb, size=k, replace=False)).astype(np.int32)
+        idx[-1] = nb - 1
+        unpack_case(f"{k} dirty of {nb} into zeros",
+                    torch.zeros(32_000, 2048, device=device), idx)
+        unpack_case(f"{k} dirty of {nb} into random words", rand_u32(
+            32_000, 2048), idx)
+    rag = f[:100_003].clone()                      # 7 blocks, the last ragged
+    unpack_case("ragged last block", rag, np.array([0, 3, 6], np.int32))
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+               torch.float64, torch.uint8, torch.int8):
+        x = (f * 100).to(dt) if dt.is_floating_point else \
+            (f * 1000).to(torch.int64).to(dt)
+        nbl = n_blocks(x, BLOCK_BYTES)
+        unpack_case(f"{dt}", x, np.arange(0, nbl, 2, dtype=np.int32))
+        unpack_case(f"{dt}, last block", x, np.array([nbl - 1], np.int32))
+    buf = raw.clone()
+    unpack_case("offset 3 bytes", buf[3:3 + BLOCK_BYTES + 17],
+                np.array([0, 1], np.int32))
+    unpack_case("offset 4 bytes (f32, +1 element)", f.clone()[1:],
+                np.array([0, 1, 6], np.int32))
+    unpack_case("0-byte leaf", torch.zeros(0, device=device),
+                np.array([0], np.int32))
+    unpack_case("block_bytes 256", f[:10_001].clone(),
+                np.arange(0, 157, 3, dtype=np.int32), bb=256)
+    # the rows diffpack gathers from a leaf, scattered into a zeros leaf of
+    # the same shape, rebuild those blocks exactly
+    src = rand_u32(32_000, 2048)
+    idx = np.arange(0, nb, 5, dtype=np.int32)
+    dst = torch.zeros_like(src)
+    dp.diffunpack(dst, dp.diffpack(src, torch.from_numpy(idx).to(device),
+                                   BLOCK_BYTES),
+                  torch.from_numpy(idx).to(device), BLOCK_BYTES)
+    rows_per_block = BLOCK_BYTES // (2048 * 4)
+    sel = torch.from_numpy(np.concatenate(
+        [np.arange(i * rows_per_block, (i + 1) * rows_per_block)
+         for i in idx])).to(device)
+    if not torch.equal(dst[sel], src[sel]) or \
+            int(dst.count_nonzero()) != int(src[sel].count_nonzero()):
+        fail("diffunpack of diffpack's rows does not rebuild the blocks")
+    try:
+        dp.diffunpack(torch.zeros(64, 64, device=device).t(),
+                      rand_u32(1, BLOCK_BYTES // 4),
+                      torch.zeros(1, dtype=torch.int32, device=device),
+                      BLOCK_BYTES)
+        fail("diffunpack wrote into a non-contiguous tensor")
+    except ValueError:
+        pass
+    log(f"[check] blockhash2, diffpack and diffunpack equal their plain "
+        f"versions bit for bit (tolerance 0): max_abs_err {worst}")
     return worst
 
 
@@ -488,10 +620,27 @@ def bound(bytes_moved: float, words: float = 0.0, per_word=None):
 def pack_bytes(t, idx, block_bytes: int) -> int:
     """Bytes diffpack must move for dirty blocks ``idx`` (numpy) of leaf
     ``t``: the leaf's own bytes in each block read once, each full row of
-    the output written once, and the indices read once."""
+    the output written once, and the indices read once.  diffunpack moves
+    the same bytes the other way: each packed row read once, the leaf's
+    own bytes in each block written once, the indices read once."""
     nbytes = t.numel() * t.element_size()
     read = sum(min(block_bytes, nbytes - int(i) * block_bytes) for i in idx)
     return read + len(idx) * (block_bytes + 4)
+
+
+def dirty_jobs(torch, state, ids, block_bytes: int):
+    """(leaf, dirty block indices) of every leaf a sparse update with
+    token ids ``ids`` touched: rows of embed and lm_head, every norm
+    vector, the step counter."""
+    import numpy as np
+    p = state["params"]
+    row_bytes = p["embed"].shape[1] * p["embed"].element_size()
+    rows = np.asarray(touched_blocks(ids, row_bytes, block_bytes), np.int32)
+    jobs = [(p["embed"], rows), (p["lm_head"], rows)]
+    jobs += [(n, np.arange(n_blocks(n, block_bytes), dtype=np.int32))
+             for n in norms_of(state)]
+    jobs.append((state["step"], np.zeros(1, np.int32)))
+    return jobs
 
 
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -514,7 +663,7 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word):
+def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     from repro_torch.core.protect import flatten_named
     import numpy as np
 
@@ -540,13 +689,7 @@ def time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word):
         work=f"{len(leaves)} leaves, {nbytes} B, {words} u32 words")
 
     # diffpack: the dirty blocks of the first sparse update, per leaf
-    p = state["params"]
-    row_bytes = p["embed"].shape[1] * p["embed"].element_size()
-    rows = np.asarray(touched_blocks(ids2, row_bytes, bb), np.int32)
-    jobs = [(p["embed"], rows), (p["lm_head"], rows)]
-    jobs += [(n, np.arange(n_blocks(n, bb), dtype=np.int32))
-             for n in norms_of(state)]
-    jobs.append((state["step"], np.zeros(1, np.int32)))
+    jobs = dirty_jobs(torch, state, ids2, bb)
     n_dirty = sum(len(i) for _, i in jobs)
     moved = sum(pack_bytes(t, i, bb) for t, i in jobs)
     jobs = [(t, torch.from_numpy(i).cuda()) for t, i in jobs]
@@ -560,6 +703,37 @@ def time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word):
     out["diffpack"] = dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         work=f"{len(jobs)} leaves, {n_dirty} dirty blocks, {moved} B")
+
+    # diffunpack: store 4's delta, per leaf, as the restart replays it —
+    # the rows diffpack gathers from the leaf, scattered back into it (the
+    # same bytes, so the state stays as it is)
+    ujobs = dirty_jobs(torch, state, ids4, bb)
+    u_dirty = sum(len(i) for _, i in ujobs)
+    u_moved = sum(pack_bytes(t, i, bb) for t, i in ujobs)
+    ujobs = [(t, torch.from_numpy(i).cuda()) for t, i in ujobs]
+    ujobs = [(t, i, dp.diffpack(t, i, bb)) for t, i in ujobs]
+    ujobs_b = [(ops.as_u32_blocks(t, bb)[0], i, r, i.to(torch.int64))
+               for t, i, r in ujobs]
+    ms = device_ms(torch, lambda: [dp.diffunpack(t, r, i, bb)
+                                   for t, i, r in ujobs])
+    plain = device_ms(torch, lambda: [ref.diffunpack_ref(b, r, i)
+                                      for b, i, r, _ in ujobs_b])
+    lib = device_ms(torch, lambda: [b.index_copy_(0, i64, r)
+                                    for b, _, r, i64 in ujobs_b])
+    b_ms, b_by = bound(u_moved)
+    out["diffunpack"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        work=f"{len(ujobs)} leaves, {u_dirty} dirty blocks, {u_moved} B")
+    t, i, r = ujobs[0]
+    b, _, _, i64 = ujobs_b[0]
+    u = device_ms(torch, lambda: dp.diffunpack(t, r, i, bb))
+    u_plain = device_ms(torch, lambda: ref.diffunpack_ref(b, r, i))
+    u_lib = device_ms(torch, lambda: b.index_copy_(0, i64, r))
+    u_b, _ = bound(pack_bytes(t, i.cpu().numpy(), bb))
+    log(f"[time] params/embed alone: diffunpack of {i.numel()} dirty blocks "
+        f"{u:.4f} ms (bound {u_b:.3g} ms by bytes; plain {u_plain:.4f} ms; "
+        f"index_copy_ {u_lib:.4f} ms)")
+    del ujobs, ujobs_b
 
     # where the time goes: one leaf alone, one launch each, against the
     # whole state's 202 (hash) and 48 (pack) launches above — the largest
@@ -872,12 +1046,243 @@ def training_path(torch, args, device, ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 6: the object-store L4, incremental stores and SCR
+# --------------------------------------------------------------------------- #
+
+def cdc_rate(n_bytes: int = 256 << 20) -> float:
+    """MB/s of the CDC chunker (default bounds) over ``n_bytes`` of random
+    bytes pushed in 4 MiB pieces, on this host."""
+    import numpy as np
+
+    from repro_torch.objstore.cdc import CDCParams, Chunker
+    data = np.random.default_rng(SEED).integers(
+        0, 256, n_bytes, dtype=np.uint8).tobytes()
+    t = time.time()
+    c = Chunker(CDCParams())
+    for off in range(0, n_bytes, 4 << 20):
+        c.push(data[off:off + (4 << 20)])
+    c.finish()
+    return n_bytes / (time.time() - t) / 1e6
+
+
+def wipe_dirs(root: Path) -> None:
+    """Everything but the object-store bucket: the node-local storage
+    (L1–L3) and the global directory's checkpoints (L4)."""
+    shutil.rmtree(root / "node-local", ignore_errors=True)
+    for d in (root / "global").glob("ckpt-*"):
+        shutil.rmtree(d)
+    latest = root / "global" / "latest"
+    if latest.exists():
+        latest.unlink()
+
+
+def objstore_path(torch, args, device, ops) -> dict:
+    """Phase 6.  → {"launches": counts over the phase, "depth": layers,
+    and the numbers printed}."""
+    from repro_torch.core.context import (CHK_DIFF, CHK_FULL,
+                                          CheckpointConfig, CheckpointContext)
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.telemetry import trace as ttrace
+
+    bb = args.block_bytes
+    on_card = device.type == "cuda"
+    rate = cdc_rate(256 << 20 if on_card else 8 << 20)
+    log(f"[obj] CDC chunker on this host: {rate:.1f} MB/s (default bounds "
+        f"256 KiB / 1 MiB / 4 MiB, {256 if on_card else 8} MiB of random "
+        f"bytes)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    state = tinyllama_state(torch, args.objstore_layers, args.width_div,
+                            device, gen)
+    sync(torch, device)
+    named = flatten_named(state)
+    nbytes = sum(t.numel() * t.element_size() for t in named.values())
+    total_blocks = sum(n_blocks(t, bb) for t in named.values())
+    p = state["params"]
+    row_bytes = p["embed"].shape[1] * p["embed"].element_size()
+    norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
+    sparse_leaves = 2 + len(norms_of(state)) + 1
+    log(f"[obj] state: {args.objstore_layers} of 22 layers, {len(named)} "
+        f"leaves, {nbytes / 1e9:.2f} GB on {device}")
+
+    def want_dirty(ids):
+        return 2 * len(touched_blocks(ids, row_bytes, bb)) + norm_blocks + 1
+
+    def zeros_like_state():
+        return unflatten_named({k: torch.zeros_like(v)
+                                for k, v in named.items()}, state)
+
+    def check_equal(restored, what):
+        bad = [k for k, v in flatten_named(restored).items()
+               if v.device != named[k].device or not torch.equal(v, named[k])]
+        if bad:
+            fail(f"{what}: restored leaves differ from the state: {bad[:5]}")
+
+    def timed_load(cfg):
+        """A fresh context restores into zeros on the device → (tree, the
+        restored checkpoint's metadata, seconds)."""
+        template = zeros_like_state()
+        sync(torch, device)
+        t = time.time()
+        ctx = CheckpointContext(cfg)
+        eng, seen = ctx.tcl.backend.engine, {}
+        load_latest = eng.load_latest
+
+        def keep_meta(*a, **kw):
+            got = load_latest(*a, **kw)
+            seen["meta"] = got[1] if got else {}
+            return got
+
+        eng.load_latest = keep_meta
+        got = ctx.load(template)
+        ctx.shutdown()
+        sync(torch, device)
+        if not ctx.restarted:
+            fail(f"{cfg.dir}: the restart found no checkpoint")
+        return got, seen["meta"], time.time() - t
+
+    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    out = {"depth": args.objstore_layers, "cdc_mb_s": rate}
+    ttrace.reset()
+    ttrace.enable()
+    ops.reset_launch_counts()
+
+    # 6a: FULL and DIFF at L4 through the object store, CP-dedicated thread
+    cfg = CheckpointConfig(dir=str(OBJ_DIR / "l4"), backend="fti",
+                           block_bytes=bb)
+    reports, uploaded = [], {}
+    ctx = CheckpointContext(cfg)
+    tier = ctx.tcl.backend.engine.objstore_tier()
+    if tier is None:
+        fail("the default CheckpointConfig composed no object-store tier")
+
+    def note(rep):
+        reports.append(rep)
+        uploaded[rep.ckpt_id] = tier.uploader.stats["bytes_uploaded"]
+
+    ctx.observe_store_reports(note)
+    t = time.time()
+    ctx.store(state, id=1, level=4, kind=CHK_FULL)
+    call1 = time.time() - t
+    ids = sparse_update(torch, state, gen)     # before the FULL's tail ran
+    t = time.time()
+    ctx.store(state, id=2, level=4, kind=CHK_DIFF)
+    call2 = time.time() - t
+    ctx.shutdown()
+    stages = stage_seconds(ttrace.tracer().events())
+    by_id = {r.ckpt_id: r for r in reports}
+    if sorted(by_id) != [1, 2] or by_id[2].kind != CHK_DIFF:
+        fail(f"L4 stores committed {[(r.ckpt_id, r.kind) for r in reports]}")
+    got = round(by_id[2].dirty_ratio * total_blocks)
+    if got != want_dirty(ids):
+        fail(f"L4 DIFF: {got} dirty blocks, expected {want_dirty(ids)}")
+    up1, up2 = uploaded[1], uploaded[2] - uploaded[1]
+    for i, call in ((1, call1), (2, call2)):
+        r = by_id[i]
+        log(f"[obj] L4 store {i}: kind={r.kind} bytes_payload="
+            f"{r.bytes_payload} plan_s={r.plan_seconds:.4f} store_call_s="
+            f"{call:.4f} total_s={r.seconds:.4f}; stages (s): " + " ".join(
+                f"{st}={stages.get((i, st), 0.0):.4f}"
+                for st in ("plan", "pack", "place", "commit")))
+    log(f"[obj] uploaded: store 1 {up1} B, store 2 {up2} B (ratio "
+        f"{up2 / max(up1, 1):.5f}); DIFF dirty blocks {got} (expected "
+        f"{want_dirty(ids)}); catalog ids {tier.catalog.ids()}; uploader "
+        f"{dict(tier.uploader.stats)}")
+    out.update(l4_reports={i: (r.bytes_payload, r.plan_seconds, r.seconds)
+                           for i, r in by_id.items()},
+               l4_pack_s={i: stages.get((i, "pack"), 0.0) for i in by_id},
+               uploaded=(up1, up2))
+
+    wipe_dirs(OBJ_DIR / "l4")
+    n0 = ops.launch_counts()["diffunpack"]
+    restored, meta, out["l4_restore_s"] = timed_load(cfg)
+    if meta.get("recovered_via") != "objstore":
+        fail(f"after the wipe the restore came via "
+             f"{meta.get('recovered_via')}, not the object store")
+    check_equal(restored, "object-store restore")
+    replayed = ops.launch_counts()["diffunpack"] - n0
+    log(f"[obj] restore from the object store alone: {len(named)} leaves "
+        f"bit-exact on {device} in {out['l4_restore_s']:.2f} s "
+        f"(recovered_via={meta['recovered_via']}, DIFF replayed with "
+        f"{replayed} diffunpack launches)")
+    del restored
+    shutil.rmtree(OBJ_DIR / "l4", ignore_errors=True)
+
+    # 6b: an incremental store in two parts, then a DIFF with the exact
+    # dirty-block count, then a restore
+    cfg = CheckpointConfig(dir=str(OBJ_DIR / "inc"), backend="fti",
+                           block_bytes=bb)
+    reports = []
+    ctx = CheckpointContext(cfg).observe_store_reports(reports.append)
+    t = time.time()
+    inc = ctx.store_begin(id=1, level=1)
+    inc.add({"params": {k: v for k, v in p.items() if k != "layers"}})
+    inc.add({"params": {"layers": p["layers"]}, "step": state["step"]})
+    inc.commit()
+    inc_call = time.time() - t
+    ids = sparse_update(torch, state, gen)    # before the commit's tail ran
+    ctx.store(state, id=2, level=1, kind=CHK_DIFF)
+    ctx.shutdown()
+    by_id = {r.ckpt_id: r for r in reports}
+    if sorted(by_id) != [1, 2] or by_id[2].kind != CHK_DIFF:
+        fail(f"incremental chain committed "
+             f"{[(r.ckpt_id, r.kind) for r in reports]}")
+    got = round(by_id[2].dirty_ratio * total_blocks)
+    if got != want_dirty(ids):
+        fail(f"DIFF after the incremental store: {got} dirty blocks, "
+             f"expected {want_dirty(ids)}")
+    restored, meta, out["inc_restore_s"] = timed_load(cfg)
+    if meta.get("id") != 2 or meta.get("kind") != CHK_DIFF:
+        fail(f"incremental chain: restored {meta.get('id')} "
+             f"{meta.get('kind')}, not the DIFF 2")
+    check_equal(restored, "incremental + DIFF restore")
+    del restored
+    log(f"[obj] incremental store (2 parts, {inc_call:.2f} s to commit, "
+        f"total_s {by_id[1].seconds:.2f}), then DIFF with {got} dirty blocks "
+        f"(expected {want_dirty(ids)}); restore bit-exact in "
+        f"{out['inc_restore_s']:.2f} s")
+    shutil.rmtree(OBJ_DIR / "inc", ignore_errors=True)
+
+    # 6c: one SCR FULL store and restart
+    cfg = CheckpointConfig(dir=str(OBJ_DIR / "scr"), backend="scr",
+                           block_bytes=bb)
+    ctx = CheckpointContext(cfg)
+    t = time.time()
+    rep = ctx.store(state, id=1, level=1)
+    scr_s = time.time() - t
+    ctx.shutdown()
+    restored, meta, out["scr_restore_s"] = timed_load(cfg)
+    check_equal(restored, "SCR restore")
+    del restored
+    log(f"[obj] SCR FULL store {rep.bytes_payload} B in {scr_s:.2f} s "
+        f"(file mode); restart bit-exact in {out['scr_restore_s']:.2f} s")
+    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    sync(torch, device)
+    out["launches"] = ops.launch_counts()
+    ttrace.disable()
+    want = {"blockhash2": 4 * len(named), "diffpack": 2 * sparse_leaves,
+            "diffunpack": 2 * sparse_leaves, "flashattn": 0}
+    log(f"[obj] kernel launches over the phase: {out['launches']} (expected "
+        f"on the card: {want})")
+    if on_card and out["launches"] != want:
+        fail("phase 6 launch counts do not match the leaves hashed, packed "
+             "and unpacked")
+    del state, named
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--layers", type=int, default=22,
-                    help="decoder layers (the only cut allowed on the card)")
+                    help="decoder layers of phases 3 and 5 (the only cut "
+                         "allowed there on the card)")
+    ap.add_argument("--objstore-layers", type=int, default=OBJSTORE_LAYERS,
+                    help="decoder layers of phase 6 (its CDC chunking runs "
+                         "on the host, and sets its time)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
@@ -899,6 +1304,7 @@ def main() -> None:
     if args.device == "cpu":
         main_path(torch, args, torch.device("cpu"), ops)
         training_path(torch, args, torch.device("cpu"), ops)
+        objstore_path(torch, args, torch.device("cpu"), ops)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -913,7 +1319,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.time()
-    sources = ["blockhash2", "diffpack", "flashattn"]
+    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
     logs = build.compile_all(sources)
     log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
         f"{time.time() - t:.1f} s")
@@ -932,16 +1338,21 @@ def main() -> None:
     worst["flashattn"] = check_flash(torch, device, ops, ref, fa)
     log(f"[phase] kernel checks: {time.time() - t:.1f} s")
     t = time.time()
-    state, ids2, launches = main_path(torch, args, device, ops)
+    state, ids2, ids4, launches, _ = main_path(torch, args, device, ops)
     log(f"[phase] directive path: {time.time() - t:.1f} s")
     t = time.time()
-    times = time_kernels(torch, state, ids2, ops, ref, bh, dp, per_word)
+    times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
+                         per_word)
     times["flashattn"] = time_flash(torch, device, ref, fa)
     log(f"[phase] timing: {time.time() - t:.1f} s")
     del state
     t = time.time()
     train = training_path(torch, args, device, ops)
     log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
+    t = time.time()
+    obj = objstore_path(torch, args, device, ops)
+    log(f"[phase] object store, incremental, SCR ({obj['depth']} of 22 "
+        f"layers): {time.time() - t:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -950,14 +1361,17 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
     # each kernel's launches come from the path that runs it, counted from
-    # zero over that path: the directive path (phase 3) for the hash and
-    # the pack, the training path (phase 5) for attention
-    paths = {"directive": launches, "training": train["launches"]}
+    # zero over that path: the directive path (phase 3) for the hash, the
+    # pack and the unpack, the training path (phase 5) for attention
+    paths = {"directive": launches, "training": train["launches"],
+             "objstore": obj["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
         "diffpack": ("src/repro_torch/kernels/csrc/diffpack.cu",
                      "src/repro/kernels/diffpack.py:22", "directive"),
+        "diffunpack": ("src/repro_torch/kernels/csrc/diffunpack.cu",
+                       "src/repro/kernels/diffpack.py:45", "directive"),
         "flashattn": ("src/repro_torch/kernels/csrc/flashattn.cu",
                       "src/repro/kernels/flashattn.py:35", "training"),
     }
@@ -972,7 +1386,9 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "work": r["work"], "path": path,
             "launches_by_path": {p: c[name] for p, c in paths.items()},
-            "layers": args.layers if path == "directive" else 22})
+            "layers": args.layers if path == "directive" else 22,
+            "layers_by_path": {"directive": args.layers, "training": 22,
+                               "objstore": obj["depth"]}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

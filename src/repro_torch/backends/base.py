@@ -15,7 +15,8 @@ What a backend *declares* (capabilities):
 
 What a backend *composes* (``compose_tiers``): the level → tier-stack map
 the pipeline places with.  No backend re-implements placement, redundancy
-or commit — those are pipeline stages (core/pipeline.py).
+or commit — those are pipeline stages (core/pipeline.py); file-mode
+protocols (SCR) enter the pipeline at Place via ``finish_external``.
 
 Asynchrony is uniform: Plan always runs on the calling thread (device
 snapshot / on-device diff kernels, digest ordering); when the backend has a
@@ -150,10 +151,13 @@ class Backend(abc.ABC):
         that restore whole containers don't need it, but it rides the
         uniform protocol so subclasses can consume it.
 
-        Leaves come back as host numpy arrays; TCL puts each on its
-        template leaf's device."""
+        Leaves come back as host numpy arrays, except the DIFF-replayed
+        leaves of ``req.devices``, which come back as tensors on their
+        template's device; TCL puts the rest on their template leaf's
+        device."""
         self.tcl_wait()
-        got = self.engine.load_latest()
+        got = self.engine.load_latest(
+            devices=req.devices if req is not None else None)
         if got is None:
             return None
         self.stats["loads"] += 1
@@ -161,14 +165,15 @@ class Backend(abc.ABC):
 
     def tcl_store_begin(self, ckpt_id: int, level: int,
                         extra_meta: Optional[Dict[str, Any]] = None):
-        """Open an incremental store.  ``core/incremental.py`` is not
-        ported to this package yet, so this raises."""
+        """Open an incremental store routed through this backend's pipeline
+        (and its CP thread, when present)."""
         if not self.supports_incremental:
             raise NotImplementedError(
                 f"backend {self.name!r} has no incremental stores")
-        raise NotImplementedError(
-            "incremental stores (core/incremental.py) are not ported to "
-            "repro_torch yet; they come with the next slice of the port")
+        from repro_torch.core.incremental import IncrementalStore
+        return IncrementalStore(self.engine, ckpt_id, level,
+                                extra_meta=extra_meta, cp=self._cp,
+                                stats=self.stats)
 
     def tcl_wait(self) -> None:
         """Fence asynchronous work (no-op for synchronous backends)."""

@@ -64,9 +64,20 @@ class CheckpointConfig:
     rs_parity: int = 2
     promote_threshold: float = 0.95
     dedicated_thread: bool = True              # CP-dedicated threads (§4.2.2)
-    # the object-store L4 is not ported yet: while on (the JAX package's
-    # default), a level-4 store raises NotImplementedError
+    # object-store L4 (repro_torch.objstore): content-addressed uploads + catalog
     objstore: bool = True
+    objstore_url: Optional[str] = None         # None → file:<dir>/objstore
+    objstore_chunk_bytes: int = 1 << 20        # fixed-mode chunk size
+    objstore_chunking: str = "cdc"             # "cdc" | "fixed"
+    objstore_cdc_min_bytes: int = 256 << 10    # CDC lower cut bound
+    objstore_cdc_avg_bytes: int = 1 << 20      # CDC target average
+    objstore_cdc_max_bytes: int = 4 << 20      # CDC forced-cut bound
+    objstore_transfers: int = 4                # parallel transfer threads
+    # retention clauses over the objstore catalog: keep the newest
+    # ``keep_last`` checkpoints plus every ``keep_every``-th id; GC sweeps
+    # the chunks nothing references (both None → keep everything)
+    keep_last: Optional[int] = None
+    keep_every: Optional[int] = None
 
     def storage(self) -> StorageConfig:
         return StorageConfig(
@@ -78,6 +89,15 @@ class CheckpointConfig:
             rs_parity=self.rs_parity,
             promote_threshold=self.promote_threshold,
             objstore=self.objstore,
+            objstore_url=self.objstore_url,
+            objstore_chunk_bytes=self.objstore_chunk_bytes,
+            objstore_chunking=self.objstore_chunking,
+            objstore_cdc_min_bytes=self.objstore_cdc_min_bytes,
+            objstore_cdc_avg_bytes=self.objstore_cdc_avg_bytes,
+            objstore_cdc_max_bytes=self.objstore_cdc_max_bytes,
+            objstore_transfers=self.objstore_transfers,
+            objstore_keep_last=self.keep_last,
+            objstore_keep_every=self.keep_every,
         )
 
 
@@ -108,9 +128,9 @@ class CheckpointContext:
 
     def observe_store_reports(self, cb) -> "CheckpointContext":
         """Register *cb* to receive every committed
-        :class:`~repro.core.pipeline.StoreReport` (async tails included) —
+        :class:`~repro_torch.core.pipeline.StoreReport` (async tails included) —
         the cadence controller's store-cost feed
-        (``repro.chaos.cadence.CadenceController.note_report``)."""
+        (``repro_torch.chaos.cadence.CadenceController.note_report``)."""
         self.tcl.backend.pipeline.on_report = cb
         return self
 
@@ -151,9 +171,13 @@ class CheckpointContext:
 
     def store_begin(self, *, id: int, level: int,
                     if_: bool = True):
-        """Incremental checkpointing (paper §8 Future Work).  Not ported to
-        this package yet: raises ``NotImplementedError`` (returns None when
-        ``if_`` is false — the switch-off clause)."""
+        """Incremental checkpointing (paper §8 Future Work): open a
+        checkpoint and ``add`` parts as they become ready; ``commit``
+        finalizes (manifest + redundancy) through the pipeline's
+        Place → Commit stages — asynchronously when the backend has a
+        CP-dedicated thread (no fence against in-flight stores: the CP
+        queue serializes commits, and parts stage into a private ``.tmp``
+        dir). Returns None when ``if_`` is false (switch-off clause)."""
         self._check_open()
         if not if_:
             return None

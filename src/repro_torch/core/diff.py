@@ -26,7 +26,13 @@ below a ~95 % dirty ratio (Fig. 7).  When the observed ratio exceeds
 ``promote_threshold`` the engine *promotes* the store to a FULL checkpoint.
 
 Restore: FULL base + ordered DIFF deltas are replayed into flat uint32
-buffers on the host with numpy, then bit-cast back to the leaf dtype/shape.
+buffers on the host with numpy, then bit-cast back to the leaf dtype/shape
+(as in the JAX package).  When the restart template's leaf is a tensor,
+the restore instead places the decoded base on the template's device once
+and scatters each delta's dirty blocks into it in place
+(:func:`apply_delta_tensor`: the diffunpack kernel on the card, its plain
+version on the CPU) — the same bytes, without copying the whole leaf to
+the device once per delta.
 """
 from __future__ import annotations
 
@@ -93,6 +99,18 @@ class DiffEngine:
             self._digests.pop(p, None)
         if paths:
             self.epoch += 1
+
+    def digest_key(self, path: str) -> Optional[str]:
+        """Compact fingerprint of ``path``'s current block digests, or None
+        when no digest chain exists for it (diff-unaware backends,
+        never-stored leaves).  Used as a chunk-layout reuse key on the fused
+        Pack → upload path: equal fingerprints mean the leaf's bytes are
+        unchanged since the digests were recorded, so the chunk stream can
+        replay its previous CDC cut layout instead of re-scanning."""
+        d = self._digests.get(path)
+        if d is None:
+            return None
+        return ops.digest_fingerprint(d)
 
     def launch_digests(self, named: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Hash every leaf on its device → ``{path: (n_blocks, 2) tensor}``.
@@ -185,3 +203,11 @@ def apply_delta(buf: np.ndarray, dirty_idx: np.ndarray, payload: np.ndarray,
     if dirty_idx.shape[0]:
         blocks[dirty_idx] = payload
     return blocks.reshape(-1)
+
+
+def apply_delta_tensor(leaf: torch.Tensor, dirty_idx: np.ndarray,
+                       payload: np.ndarray, block_bytes: int) -> torch.Tensor:
+    """:func:`apply_delta` on a contiguous leaf tensor, in place: its bytes
+    viewed as ``block_bytes`` blocks, the packed dirty blocks copied to the
+    leaf's device and scattered by ``ops.unpack_dirty``.  → ``leaf``."""
+    return ops.unpack_dirty(leaf, dirty_idx, payload, block_bytes)

@@ -26,14 +26,21 @@ incremental, any backend — flows through the same four stages:
             final rename, diff-chain-aware retention pruning.
 
 ``plan()`` is cheap and synchronous; ``finish()`` (= pack + place + commit)
-is the asynchronous tail a CP-dedicated thread runs.  (The JAX package's
-``finish_external()`` entry at Place, for SCR file mode and incremental
-stores, comes with those backends' port.)
+is the asynchronous tail a CP-dedicated thread runs.  File-mode backends
+(SCR ``route_file``) and incremental stores that produced their payload
+outside Pack enter at Place via ``finish_external()`` — so *no* caller
+re-implements placement or commit.
 
 Restart search order: L1 → L2 (partner) → L3 (erasure reconstruct) → L4,
 newest checkpoint id first — exactly FTI's recovery ladder, now expressed
 as iteration over the tier ladder (the tier that produced the payload is
 reported as ``recovered_via`` in the restored metadata).
+
+DIFF replay follows the restart template: a leaf whose template is a
+tensor has its FULL base placed on the template's device once and every
+later delta scattered into it there (``diff.apply_delta_tensor``: the
+diffunpack kernel on the card); every other leaf replays with numpy on
+the host, as in the JAX package.  Both give the same bytes.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.chaos import inject as chaos
 from repro_torch.core import manifest as mf
@@ -53,10 +61,18 @@ from repro_torch.core.diff import (
     DiffEngine,
     LeafDelta,
     apply_delta,
+    apply_delta_tensor,
     leaf_to_u32_flat,
     u32_flat_to_leaf,
 )
-from repro_torch.core.formats import CHK5Reader, CHK5Writer
+from repro_torch.core.formats import (
+    CHK5Reader,
+    CHK5Writer,
+    numpy_to_tensor,
+    str_to_dtype,
+    tensor_to_numpy,
+    torch_dtype_to_str,
+)
 from repro_torch.core.protect import CHK_DIFF, CHK_FULL, Protect, to_host
 from repro_torch.core.resharding import split_sharded
 from repro_torch.core.tiers import (
@@ -86,9 +102,17 @@ class StorageConfig:
     promote_threshold: float = 0.95            # diff→full break-even (Fig. 7)
     ranks_per_node: int = 1
     custom_groups: Optional[dict] = None       # SCR-style group overrides
-    # the object-store L4 rung is not ported yet: while this is on (the
-    # JAX package's default), a level-4 store raises NotImplementedError
-    objstore: bool = True
+    # --- object-store L4 (repro_torch.objstore) ---------------------- #
+    objstore: bool = True                      # compose ObjectStoreTier at L4
+    objstore_url: Optional[str] = None         # None → file:<root>/objstore
+    objstore_chunk_bytes: int = 1 << 20        # fixed-mode chunk size
+    objstore_chunking: str = "cdc"             # "cdc" | "fixed"
+    objstore_cdc_min_bytes: int = 256 << 10    # CDC lower cut bound
+    objstore_cdc_avg_bytes: int = 1 << 20      # CDC target average
+    objstore_cdc_max_bytes: int = 4 << 20      # CDC forced-cut bound
+    objstore_transfers: int = 4                # parallel upload threads
+    objstore_keep_last: Optional[int] = None   # retention: newest N entries
+    objstore_keep_every: Optional[int] = None  # retention: pin id % K == 0
 
     @property
     def global_root(self) -> str:
@@ -150,10 +174,13 @@ class StoreRequest:
 class LoadRequest:
     """What the caller wants restored (transparent-restart input): the
     template tree plus the protection specs restricting which leaves the
-    checkpoint must supply."""
+    checkpoint must supply.  ``devices`` (filled by TCL from the template)
+    maps each protected leaf whose template is a tensor to that tensor's
+    device: the restore replays the leaf's DIFF chain there."""
     template: Any = None
     protects: Optional[List[Protect]] = None
     specs: Optional[Dict[str, Optional[Protect]]] = None  # resolved by TCL
+    devices: Optional[Dict[str, torch.device]] = None     # filled by TCL
 
 
 @dataclass
@@ -176,6 +203,10 @@ class Plan:
     specs: Optional[Dict[str, Optional[Protect]]] = None  # clause specs
     dirty_ratio: Optional[float] = None
     promoted_full: bool = False
+    #: dataset name → layout-reuse key for the fused Pack → chunk-stream
+    #: path (digest-derived; set by Plan once the FULL leaves' digests
+    #: describe the snapshot, consumed by CHK5Writer.region_keys)
+    reuse_keys: Optional[Dict[str, str]] = None
     t0: float = field(default_factory=time.time)
     plan_seconds: float = 0.0          # time spent in plan() itself
     digest_epoch: int = -1             # DIFF only: chain epoch at plan time
@@ -230,6 +261,9 @@ class CheckpointPipeline:
 
     def tier_stack(self, level: int) -> List[Tier]:
         return self.stacks[self.clamp_level(level)]
+
+    def tier_root(self, level: int) -> str:
+        return self.tier_stack(level)[0].root
 
     # ------------------------------------------------------------------ #
     # stage 1: Plan
@@ -314,13 +348,17 @@ class CheckpointPipeline:
             if digests is not None:
                 self.diff.commit_digests(digests)
 
-        return Plan(ckpt_id=req.ckpt_id, level=level, kind=kind, tiers=tiers,
+        plan = Plan(ckpt_id=req.ckpt_id, level=level, kind=kind, tiers=tiers,
                     root=tiers[0].root, attrs=attrs, extra=extra,
                     named_host=named_host, deltas=deltas,
                     specs=dict(specs) if specs else None,
                     dirty_ratio=dirty_ratio, promoted_full=promoted,
-                    plan_seconds=time.time() - t_plan,
                     digest_epoch=epoch if kind == CHK_DIFF else -1)
+        # here, not in the tail: the digests describe exactly the snapshot
+        # now, and a later plan may advance them before this tail runs
+        self._compute_reuse_keys(plan)
+        plan.plan_seconds = time.time() - t_plan
+        return plan
 
     def abort_plan(self, plan: Plan) -> None:
         """A planned store will never reach finish() (e.g. the CP submit
@@ -329,6 +367,17 @@ class CheckpointPipeline:
         them promotes to FULL instead of diffing against a store that
         never happened."""
         self.diff.invalidate(self._plan_leaf_paths(plan))
+
+    def plan_external(self, ckpt_id: int, level: int,
+                      extra_meta: Optional[Dict[str, Any]] = None) -> Plan:
+        """Plan for a payload produced outside Pack (file-mode backends,
+        incremental stores).  Kind is FULL: the container holds a complete
+        restorable snapshot of whatever was routed/added."""
+        level = self.clamp_level(level)
+        tiers = self.tier_stack(level)
+        extra = dict(extra_meta or {})
+        return Plan(ckpt_id=ckpt_id, level=level, kind=CHK_FULL, tiers=tiers,
+                    root=tiers[0].root, attrs=dict(extra), extra=extra)
 
     # ------------------------------------------------------------------ #
     # stage 2: Pack
@@ -354,6 +403,8 @@ class CheckpointPipeline:
                      world=self.comm.world)
         sink = self._pack_sink(plan, os.path.basename(path))
         with CHK5Writer(path, sink=sink) as w:
+            if plan.reuse_keys:
+                w.region_keys = dict(plan.reuse_keys)
             w.set_attrs("", dict(attrs, kind=plan.kind))
             if plan.named_host:
                 pack_named(w, plan.named_host, plan.specs, self.pack_tiers)
@@ -470,7 +521,28 @@ class CheckpointPipeline:
             paths += list(plan.named_host)
         if plan.deltas is not None:
             paths += [d.path for d in plan.deltas]
-        return paths
+        return paths or plan.extra.get("parts", [])
+
+    def _compute_reuse_keys(self, plan: Plan) -> None:
+        """Derive chunk-layout reuse keys for FULL leaves from the block
+        digests the diff engine holds (computed on the leaves' device) — a
+        leaf whose digests and encoding spec are unchanged since the last
+        store produces byte-identical container regions, so the chunk
+        stream replays its recorded cut layout verbatim and the CDC scan
+        is skipped for those bytes.  The key folds in the Protect spec
+        because clause changes (compression, precision) alter the encoded
+        bytes while the digests stay equal.  Correctness never depends on
+        a key: chunk digests are always computed from the actual bytes — a
+        wrong key only costs cut-placement quality."""
+        if not plan.named_host:
+            return
+        specs = plan.specs or {}
+        keys: Dict[str, str] = {}
+        for path in plan.named_host:
+            dk = self.diff.digest_key(path)
+            if dk:
+                keys[f"data/{path}"] = f"{path}|{specs.get(path)!r}|{dk}"
+        plan.reuse_keys = keys or None
 
     def finish(self, plan: Plan) -> StoreReport:
         """The asynchronous tail: Pack → Place → Commit.
@@ -502,6 +574,26 @@ class CheckpointPipeline:
         except BaseException:
             self.diff.invalidate(self._plan_leaf_paths(plan))
             raise
+
+    def finish_external(self, plan: Plan, payload_path: str,
+                        nbytes: int) -> StoreReport:
+        """Place + Commit for a payload staged outside Pack (the file was
+        already written into ``ckpt-<id>.tmp`` under ``plan.root``)."""
+        plan.t0 = time.time()       # exclude any CP-queue wait from seconds
+        packed = Packed(
+            stage_dir=mf.ckpt_dir(plan.root, plan.ckpt_id, tmp=True),
+            path=payload_path, nbytes=nbytes)
+        with ttrace.span("pipeline.store", ckpt_id=plan.ckpt_id,
+                         level=plan.level, kind=plan.kind,
+                         external=True) as sp:
+            try:
+                self.place(plan, packed)
+                report = self.commit(plan, packed)
+            except BaseException:
+                self.diff.invalidate(self._plan_leaf_paths(plan))
+                raise
+            report.span_id = sp.id
+            return report
 
     def store(self, req: StoreRequest) -> StoreReport:
         """Run all four stages synchronously."""
@@ -567,19 +659,25 @@ class CheckpointPipeline:
                 return blob, man, tier.name
         return None
 
-    def load_latest(self, rank: Optional[int] = None
-                    ) -> Optional[Tuple[Dict[str, np.ndarray], Dict[str, Any]]]:
-        """Restore newest restorable checkpoint: FULL base + diff replay,
-        as host numpy arrays.  A checkpoint holding sharded leaves (written
-        by the JAX package's shard-local store) is not restorable by this
-        port yet: the walk warns and falls back to an older id."""
+    def load_latest(self, rank: Optional[int] = None,
+                    devices: Optional[Dict[str, Any]] = None
+                    ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+        """Restore newest restorable checkpoint: FULL base + diff replay.
+
+        Leaves come back as host numpy arrays, except those named in
+        ``devices`` (path → device) that a DIFF link of the chain touches:
+        each of those is placed on its device once, from its FULL base, and
+        comes back as a tensor there with every delta scattered into it in
+        place.  A checkpoint holding sharded leaves (written by the JAX
+        package's shard-local store) is not restorable by this port yet:
+        the walk warns and falls back to an older id."""
         rank = self.comm.rank if rank is None else rank
         by_id: Dict[int, List[str]] = {}
         for i, root in self.available_ids():
             by_id.setdefault(i, []).append(root)
         for ckpt_id in sorted(by_id, reverse=True):
             try:
-                got = self._try_restore(ckpt_id, by_id, rank)
+                got = self._try_restore(ckpt_id, by_id, rank, devices or {})
             except Exception as e:
                 # a checkpoint whose container fails to parse/verify (e.g.
                 # pre-digest corruption that stored a matching chunk digest)
@@ -614,7 +712,8 @@ class CheckpointPipeline:
                 return got + (root,)
         return None
 
-    def _try_restore(self, ckpt_id: int, by_id, rank: int):
+    def _try_restore(self, ckpt_id: int, by_id, rank: int,
+                     devices: Dict[str, Any]):
         # walk back to the base FULL
         chain: List[Tuple[bytes, Dict, str]] = []
         via = None
@@ -636,7 +735,8 @@ class CheckpointPipeline:
         chain.reverse()                     # [full, diff, diff, ...]
 
         named: Dict[str, Any] = {}
-        flat_u32: Dict[str, np.ndarray] = {}
+        flat_u32: Dict[str, np.ndarray] = {}        # host replay buffers
+        on_dev: Dict[str, torch.Tensor] = {}        # device replay leaves
         meta_shape: Dict[str, Tuple[str, List[int]]] = {}
         bb = None
         for blob, man, _root in chain:
@@ -657,22 +757,55 @@ class CheckpointPipeline:
                     name = ds[len("data/"):]
                     named[name] = decode_leaf(rd, ds)
                     flat_u32.pop(name, None)
+                    on_dev.pop(name, None)
                     meta_shape.pop(name, None)
                 elif ds.startswith("delta/") and ds.endswith("/digest"):
                     name = ds[len("delta/"): -len("/digest")]
                     info = rd.info(ds)["attrs"]
                     idx = rd.read_dataset(f"delta/{name}/idx")
                     blocks = rd.read_dataset(f"delta/{name}/blocks")
-                    if name not in flat_u32:
+                    if name not in flat_u32 and name not in on_dev:
                         if name not in named:
                             return None     # chain broken
-                        flat_u32[name] = leaf_to_u32_flat(named[name], bb)
-                    flat_u32[name] = apply_delta(flat_u32[name], idx, blocks, bb)
-                    meta_shape[name] = (info["dtype"], info["shape"])
+                        if devices.get(name) is not None:
+                            on_dev[name] = numpy_to_tensor(named[name],
+                                                           devices[name])
+                        else:
+                            flat_u32[name] = leaf_to_u32_flat(named[name], bb)
+                    dt, shp = info["dtype"], info["shape"]
+                    if name in on_dev:
+                        t = _reshape_for_delta(on_dev[name], dt, shp)
+                        if t is None:
+                            # the leaf changed dtype or size within the
+                            # chain: its host buffer reinterprets the
+                            # padded bytes, as the JAX package does
+                            flat_u32[name] = leaf_to_u32_flat(
+                                tensor_to_numpy(on_dev.pop(name)), bb)
+                        else:
+                            on_dev[name] = apply_delta_tensor(t, idx, blocks,
+                                                              bb)
+                    if name in flat_u32:
+                        flat_u32[name] = apply_delta(flat_u32[name], idx,
+                                                     blocks, bb)
+                    meta_shape[name] = (dt, shp)
             rd.close()
         for name, buf in flat_u32.items():
             dt, shp = meta_shape[name]
             named[name] = u32_flat_to_leaf(buf, dt, shp)
+        named.update(on_dev)
         final_meta = dict(chain[-1][1], recovered_via=via)
         return named, final_meta
 
+
+def _reshape_for_delta(t: torch.Tensor, dtype: str, shape: List[int]
+                       ) -> Optional[torch.Tensor]:
+    """``t`` (contiguous) as the leaf a delta describes — itself, or a view
+    with the delta's shape — or None when the delta's leaf has another
+    dtype or byte count (the device replay then hands the leaf to the host
+    replay)."""
+    if torch_dtype_to_str(t.dtype) != dtype:
+        return None
+    n = int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
+    if n * str_to_dtype(dtype).itemsize != t.numel() * t.element_size():
+        return None
+    return t if list(t.shape) == list(shape) else t.view(shape)

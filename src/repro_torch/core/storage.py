@@ -83,11 +83,17 @@ class StorageEngine:
     def available_ids(self) -> List[Tuple[int, str]]:
         return self.pipeline.available_ids()
 
-    def load_latest(self, rank: Optional[int] = None
-                    ) -> Optional[Tuple[Dict[str, np.ndarray], Dict[str, Any]]]:
-        return self.pipeline.load_latest(rank)
+    def load_latest(self, rank: Optional[int] = None,
+                    devices: Optional[Dict[str, Any]] = None
+                    ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+        """Newest restorable checkpoint → (leaves, manifest).  Host numpy
+        leaves, except the DIFF-replayed leaves named in ``devices``, which
+        come back as tensors on their device (pipeline.load_latest)."""
+        return self.pipeline.load_latest(rank, devices)
 
     def objstore_tier(self):
-        """The composed L4 object-store tier, or None.  This port has no
-        object store yet, so this is always None."""
-        return None
+        """The composed L4 object-store tier (repro_torch.objstore), or None
+        when ``cfg.objstore`` is off — the handle tools and benchmarks use
+        to reach the catalog and the upload/dedup stats."""
+        return next((t for t in self.pipeline.ladder
+                     if t.name == "objstore"), None)

@@ -16,7 +16,9 @@ the backend has one.
 On restore, every leaf lands on the template leaf's device with the
 template's dtype (a dtype that differs from the checkpoint's is an error,
 as in the JAX package).  Numpy and scalar template leaves restore as
-numpy arrays.
+numpy arrays.  TCL hands the pipeline each tensor leaf's device
+(``LoadRequest.devices``), so a DIFF chain replays there; such a leaf
+comes back already on its device and is taken as it is.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 from repro_torch.backends.base import Backend
 from repro_torch.backends.registry import make_backend
 from repro_torch.core.comm import Communicator
-from repro_torch.core.formats import dtype_to_str, numpy_to_tensor
+from repro_torch.core.formats import numpy_to_tensor
 from repro_torch.core.pipeline import LoadRequest, StoreRequest
 from repro_torch.core.protect import (
     flatten_named,
@@ -69,7 +71,8 @@ class TCL:
         return self.backend.tcl_store(req)
 
     def store_begin(self, ckpt_id: int, level: int):
-        """Incremental stores (§8) are not ported yet: raises."""
+        """Open an incremental store (§8) on the backend's pipeline — parts
+        are added as they become ready; commit may be asynchronous."""
         return self.backend.tcl_store_begin(ckpt_id, level)
 
     def load(self, req: Any,
@@ -81,6 +84,8 @@ class TCL:
                               protects=normalize_protects(selectors))
         named_t = flatten_named(req.template)
         req.specs = resolve_specs(named_t, req.protects)
+        req.devices = {p: named_t[p].device for p in req.specs
+                       if isinstance(named_t[p], torch.Tensor)}
         restored = self.backend.tcl_load(req)
         if restored is None:
             return None
@@ -96,13 +101,16 @@ class TCL:
                 raise ValueError(
                     f"{path}: checkpoint shape {arr.shape} != "
                     f"template {tuple(np.shape(leaf))} (use elastic restore)")
-            if dtype_to_str(arr.dtype) != leaf_dtype_str(leaf):
+            if leaf_dtype_str(arr) != leaf_dtype_str(leaf):
                 raise TypeError(
-                    f"{path}: checkpoint dtype {dtype_to_str(arr.dtype)} != "
+                    f"{path}: checkpoint dtype {leaf_dtype_str(arr)} != "
                     f"template {leaf_dtype_str(leaf)}")
             # the counterpart of jax.device_put(arr, template sharding):
             # the template leaf's device is the target
-            if isinstance(leaf, torch.Tensor):
+            if isinstance(arr, torch.Tensor):
+                # replayed on the template's device: already in place
+                merged[path] = arr.to(leaf.device)
+            elif isinstance(leaf, torch.Tensor):
                 merged[path] = numpy_to_tensor(arr, leaf.device)
             else:
                 merged[path] = arr

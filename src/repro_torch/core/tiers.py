@@ -16,10 +16,11 @@ The four built-ins mirror the paper (§4.2.1) / FTI semantics:
     ``ErasureTier``   L3  Reed–Solomon (or XOR) parity across the node group
     ``GlobalTier``    L4  parallel-file-system write (global directory)
 
-plus, in the JAX package, the object-store rung (content-addressed chunk
-uploads at Place, a checkpoint catalog at Commit).  This port has no
-object store yet: with ``StorageConfig.objstore`` on, the L4 stack holds
-``ObjectStorePendingTier``, which makes a level-4 store raise.
+plus the object-store rung (``repro_torch.objstore.tier.ObjectStoreTier``,
+composed into the L4 stack when ``StorageConfig.objstore`` is on):
+content-addressed chunk uploads at Place, an atomically-published
+checkpoint catalog at Commit, and a catalog-driven restore path that
+survives every checkpoint directory being wiped.
 
 Write stacks compose tiers (L2 = local + partner, L3 = local + erasure,
 L4 = global + objstore); the recovery ladder tries every tier in level
@@ -173,7 +174,7 @@ class Tier(abc.ABC):
     def pack_sink(self, ckpt_id: int, basename: str):
         """Pack-stage streaming hook: return a byte sink (an object with
         ``write``/``cut``/``begin_region``/``end_region``/``finish``, see
-        ``repro.objstore.chunks.ChunkStream``) for the staged file
+        ``repro_torch.objstore.chunks.ChunkStream``) for the staged file
         ``basename`` of checkpoint ``ckpt_id``, or None when this tier
         consumes whole staged files.  A CHK5 writer tees every written
         byte into the sink, so a sink tier overlaps its transfers with
@@ -363,38 +364,17 @@ class GlobalTier(Tier):
         return _valid_payload(p)
 
 
-#: why level 4 refuses to store while ``StorageConfig.objstore`` is on
-OBJSTORE_PENDING_MSG = (
-    "the object-store L4 rung (repro.objstore in the JAX package) is not "
-    "ported to repro_torch yet; it comes with the port's object-store "
-    "slice.  Store level 4 with objstore=False for the global-directory "
-    "tier alone")
-
-
-class ObjectStorePendingTier(Tier):
-    """Stands in the L4 stack for the object store while it is not ported:
-    a level-4 store fails loudly instead of silently dropping the rung."""
-
-    name = "objstore"
-    level = 5
-
-    def pack_sink(self, ckpt_id, basename):
-        # the first hook a store's tail calls: fail before Pack writes
-        raise NotImplementedError(OBJSTORE_PENDING_MSG)
-
-    def recover(self, ckpt_id, rank, root, manifest, dirs):
-        return None
-
-
 def default_tier_stacks(ctx: TierContext) -> Dict[int, List[Tier]]:
     """The FTI ladder: L2/L3 stack a redundancy tier on the local write;
-    L4 is the global-directory write.  With ``StorageConfig.objstore`` on,
-    the L4 stack also holds the object-store rung, which this port does
-    not have yet: a level-4 store then raises ``NotImplementedError``."""
+    L4 stacks the content-addressed object store on the global-directory
+    write (``StorageConfig.objstore`` gates it — the survivable rung the
+    recovery ladder falls back to when every directory is gone)."""
     local = LocalTier(ctx)
     l4: List[Tier] = [GlobalTier(ctx)]
     if getattr(ctx.cfg, "objstore", True):
-        l4.append(ObjectStorePendingTier(ctx))
+        # lazy import: objstore.tier subclasses Tier from this module
+        from repro_torch.objstore.tier import ObjectStoreTier
+        l4.append(ObjectStoreTier(ctx))
     return {
         1: [local],
         2: [local, PartnerTier(ctx)],

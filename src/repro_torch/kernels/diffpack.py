@@ -1,15 +1,18 @@
-"""Dirty-block compaction: the Hopper kernel and its plain version.
+"""Dirty-block compaction and its inverse: the Hopper kernels and their
+plain versions.
 
-Replaces ``repro/kernels/diffpack.py`` (``_copy_kernel`` via
-``diffpack_pallas``).  After the dirty map is known, the dirty blocks are
-packed into one dense buffer so a single copy ships them to the host
-instead of ``n_dirty`` strided reads.
+Replaces ``repro/kernels/diffpack.py``: ``_copy_kernel`` via
+``diffpack_pallas`` (store side) and ``_scatter_kernel`` via
+``diffunpack_pallas`` (restore side).  After the dirty map is known, the
+dirty blocks are packed into one dense buffer so a single copy ships them
+to the host instead of ``n_dirty`` strided reads; a restart replaying a
+DIFF chain onto a leaf that lives on the card copies each delta's packed
+blocks to the card and scatters them into the leaf in place.
 
-:func:`diffpack` launches ``csrc/diffpack.cu`` (CUDA C++ for sm_90a) on a
-CUDA tensor's raw bytes; :func:`diffpack_ref` (``kernels/ref.py``) is the
-plain PyTorch version.  The restore-side scatter (``diffunpack``) is not
-on this path: restores replay deltas with numpy on the host, as the JAX
-package does; its plain version ``diffunpack_ref`` lives in ``ref.py``.
+:func:`diffpack` launches ``csrc/diffpack.cu`` and :func:`diffunpack`
+``csrc/diffunpack.cu`` (CUDA C++ for sm_90a) on a CUDA tensor's raw bytes;
+:func:`diffpack_ref` and :func:`diffunpack_ref` (``kernels/ref.py``) are
+the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -19,9 +22,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.blockhash import n_blocks_of
-from repro_torch.kernels.ref import diffpack_ref  # noqa: F401  (plain version)
+from repro_torch.kernels.ref import (  # noqa: F401  (plain versions)
+    diffpack_ref,
+    diffunpack_ref,
+)
 
 LAUNCHES = build.LaunchCounter()
+UNPACK_LAUNCHES = build.LaunchCounter()
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint,
              ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_ulonglong,
@@ -63,3 +70,52 @@ def diffpack(x: torch.Tensor, dirty_idx: torch.Tensor, block_bytes: int
     build.check(err, "diffpack")
     LAUNCHES.add()
     return out
+
+
+def diffunpack(x: torch.Tensor, packed: torch.Tensor,
+               dirty_idx: torch.Tensor, block_bytes: int) -> torch.Tensor:
+    """Write packed row k into block ``dirty_idx[k]`` of a contiguous CUDA
+    tensor's C-order bytes, in place, and return ``x``.  Only bytes below
+    the leaf's end are written (the reference's zero padding past it is
+    dropped on restore anyway).  ``packed`` is ``(n_dirty, block_bytes/4)``
+    int32 (u32 bits) and the indices int32, both on ``x``'s card; the
+    indices must lie in ``[0, n_blocks)`` and increase strictly
+    (``ops.unpack_dirty`` checks both on the host before the copy).
+
+    A non-contiguous ``x`` is refused: a contiguous copy would take the
+    writes and lose them.  Launches the kernel on the current stream or
+    raises."""
+    if not x.is_cuda:
+        raise ValueError(f"diffunpack takes a CUDA tensor, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("diffunpack writes in place: the target tensor "
+                         "must be contiguous")
+    if block_bytes <= 0 or block_bytes % 4:
+        raise ValueError(f"block_bytes must be a positive multiple of 4, "
+                         f"got {block_bytes}")
+    if (dirty_idx.device != x.device or dirty_idx.dtype != torch.int32
+            or dirty_idx.dim() != 1):
+        raise ValueError(f"dirty_idx must be a 1-d int32 tensor on "
+                         f"{x.device}, got {dirty_idx.dtype} "
+                         f"{tuple(dirty_idx.shape)} on {dirty_idx.device}")
+    n_dirty = dirty_idx.numel()
+    if (packed.device != x.device or packed.dtype != torch.int32
+            or tuple(packed.shape) != (n_dirty, block_bytes // 4)):
+        raise ValueError(f"packed must be a ({n_dirty}, {block_bytes // 4}) "
+                         f"int32 tensor on {x.device}, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
+    if n_dirty == 0:
+        return x
+    data = x.detach()
+    idx = dirty_idx.contiguous()
+    rows = packed.contiguous()
+    nbytes = data.numel() * data.element_size()
+    fn = build.function("diffunpack", "diffunpack_launch", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(data.data_ptr(), nbytes, block_bytes,
+                 n_blocks_of(nbytes, block_bytes), idx.data_ptr(), n_dirty,
+                 rows.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "diffunpack")
+    UNPACK_LAUNCHES.add()
+    return x

@@ -18,7 +18,7 @@ on the host from those small tables, as in the JAX package.
 from __future__ import annotations
 
 import hashlib
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +49,11 @@ def as_u32_blocks(x: torch.Tensor, block_bytes: int = DEFAULT_BLOCK_BYTES
     if block_bytes <= 0 or block_bytes % 4:
         raise ValueError(f"block_bytes must be a positive multiple of 4, "
                          f"got {block_bytes}")
-    raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    flat = x.detach().contiguous().reshape(-1)
+    # an empty tensor may carry a stride of 0 (one made from an empty numpy
+    # array), which a dtype view refuses; it has no bytes to view anyway
+    raw = flat.view(torch.uint8) if flat.numel() else torch.zeros(
+        0, dtype=torch.uint8, device=x.device)
     n_blocks = bh.n_blocks_of(raw.numel(), block_bytes)
     padded = torch.zeros(n_blocks * block_bytes, dtype=torch.uint8,
                          device=x.device)
@@ -85,6 +89,53 @@ def pack_dirty(x: torch.Tensor, dirty_idx: np.ndarray,
         return dp.diffpack(x, idx_t, block_bytes)
     blocks, _ = as_u32_blocks(x, block_bytes)
     return ref.diffpack_ref(blocks, idx_t)
+
+
+def unpack_dirty(x: torch.Tensor, dirty_idx: np.ndarray, packed: Any,
+                 block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
+    """Scatter packed blocks into ``x`` in place — the inverse of
+    :func:`pack_dirty` — and return ``x``: block ``dirty_idx[k]`` of
+    ``x``'s C-order bytes becomes row k of ``packed`` (``(n_dirty,
+    block_bytes/4)`` u32 words, host ``np.uint32`` or int32 bits), bytes
+    past the leaf's end dropped.  The indices are checked here, on the
+    host, before anything moves to the device: each in ``[0, n_blocks)``
+    and strictly increasing (a repeated index would race on the card).
+    ``x`` must be contiguous: the writes land in its own storage."""
+    _check_device(x)
+    if not x.is_contiguous():
+        raise ValueError("unpack_dirty writes in place: the target tensor "
+                         "must be contiguous")
+    idx = np.ascontiguousarray(dirty_idx).reshape(-1)
+    if idx.size and not np.issubdtype(idx.dtype, np.integer):
+        raise TypeError(f"dirty block indices must be integers, got "
+                        f"{idx.dtype}")
+    n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
+    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
+        raise IndexError(f"dirty block index outside [0, {n_blocks})")
+    if idx.size > 1 and not bool(np.all(np.diff(idx) > 0)):
+        raise ValueError("dirty block indices must increase strictly")
+    idx = idx.astype(np.int32)
+    if isinstance(packed, torch.Tensor):
+        rows = packed.detach()
+    else:
+        words = np.ascontiguousarray(packed).view(np.int32)
+        if not words.flags.writeable:   # rows read straight from a container
+            words = words.copy()
+        rows = torch.from_numpy(words)
+    if tuple(rows.shape) != (idx.size, block_bytes // 4):
+        raise ValueError(f"packed rows {tuple(rows.shape)} != "
+                         f"({idx.size}, {block_bytes // 4})")
+    if idx.size == 0 or x.numel() == 0:
+        return x                    # nothing to write below the leaf's end
+    idx_t = torch.from_numpy(idx).to(x.device)
+    rows = rows.to(x.device, torch.int32)
+    if x.is_cuda:
+        return dp.diffunpack(x, rows, idx_t, block_bytes)
+    blocks, _ = as_u32_blocks(x, block_bytes)
+    out = ref.diffunpack_ref(blocks, rows, idx_t)
+    raw = x.detach().reshape(-1).view(torch.uint8)
+    raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
+    return x
 
 
 def u32_numpy(t: torch.Tensor) -> np.ndarray:
@@ -135,12 +186,13 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
     return {"blockhash2": bh.LAUNCHES.n, "diffpack": dp.LAUNCHES.n,
-            "flashattn": fa.LAUNCHES.n}
+            "diffunpack": dp.UNPACK_LAUNCHES.n, "flashattn": fa.LAUNCHES.n}
 
 
 def reset_launch_counts() -> None:
     bh.LAUNCHES.reset()
     dp.LAUNCHES.reset()
+    dp.UNPACK_LAUNCHES.reset()
     fa.LAUNCHES.reset()
 
 

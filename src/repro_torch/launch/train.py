@@ -56,8 +56,7 @@ def worker(args) -> int:
 
     ckpt = CheckpointContext(CheckpointConfig(
         dir=args.ckpt_dir, backend=args.backend,
-        dedicated_thread=not args.no_dedicated_thread,
-        objstore=False))            # the object-store L4 is not ported yet
+        dedicated_thread=not args.no_dedicated_thread))
 
     inject_at = args.inject_at if args.inject_at else should_inject_from_env()
     injector = FaultInjector(args.steps, inject_at, hard=args.hard_fault) \
@@ -138,7 +137,7 @@ def main() -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="build/openchk-train")
     ap.add_argument("--ckpt-every", type=int, default=10)
-    ap.add_argument("--backend", default=None, help="fti|veloc (or env)")
+    ap.add_argument("--backend", default=None, help="fti|scr|veloc (or env)")
     ap.add_argument("--differential", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: a reduced config)")

@@ -54,6 +54,58 @@ def test_hopper_kernels_match_plain_versions_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("base", ["zeros", "random"])
+def test_diffunpack_matches_plain_version_on_card(base):
+    """diffunpack against diffunpack_ref on the card, bit for bit: 1, 7 and
+    many dirty blocks, a ragged last block, every dtype width, a storage
+    offset that breaks 16-byte alignment, a 0-byte leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    f = torch.randn(300_001, generator=g, device="cuda")
+    if base == "zeros":
+        f = torch.zeros_like(f)
+    raw = (f * 1000).to(torch.int64).to(torch.uint8)
+    # (buffer, view of it): the kernel writes into a fresh copy of the
+    # buffer through the same view, so storage offsets are kept
+    cases = [(f, lambda b: b[:1]), (f, lambda b: b), (f, lambda b: b[1:]),
+             (raw, lambda b: b[3:70_000]),
+             (f[:7].to(torch.bfloat16), lambda b: b),
+             ((f * 100).to(torch.float16), lambda b: b),
+             ((f * 1000).to(torch.int32), lambda b: b),
+             (f.to(torch.float64), lambda b: b),
+             ((f * 100).to(torch.int8), lambda b: b),
+             (torch.zeros(0, device="cuda"), lambda b: b)]
+    rng = np.random.default_rng(3)
+    for buf, view in cases:
+        for bb in (256, 65_536):
+            x = view(buf)
+            nbytes = x.numel() * x.element_size()
+            blocks = ops.as_u32_blocks(x, bb)[0]
+            n = blocks.shape[0]
+            for k in sorted({1, min(7, n), n}):
+                idx = np.sort(rng.choice(n, size=k, replace=False))
+                idx[-1] = n - 1                     # the ragged last block
+                idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+                rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (k, bb // 4),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)
+                want = ref.diffunpack_ref(blocks, rows, idx_t)
+                got = view(buf.clone())
+                assert dp.diffunpack(got, rows, idx_t, bb) is got
+                got_bytes = (got.reshape(-1).view(torch.uint8) if nbytes
+                             else torch.zeros(0, dtype=torch.uint8,
+                                              device="cuda"))
+                assert torch.equal(
+                    got_bytes, want.reshape(-1).view(torch.uint8)[:nbytes])
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.diffunpack(f[:4096].reshape(64, 64).t(),
+                      torch.zeros(1, 64, dtype=torch.int32, device="cuda"),
+                      torch.zeros(1, dtype=torch.int32, device="cuda"), 256)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_directive_path_on_card_goes_through_the_kernels(tmp_path):
     """FULL, an in-place update before the async tail, DIFF, restart — on
     CUDA tensors, through the kernels and never their plain versions."""
@@ -74,12 +126,14 @@ def test_directive_path_on_card_goes_through_the_kernels(tmp_path):
     ctx.store(state, id=2, level=1, kind=CHK_DIFF)
     ctx.shutdown()
     assert ops.launch_counts() == {"blockhash2": 4, "diffpack": 2,
-                                   "flashattn": 0}
+                                   "diffunpack": 0, "flashattn": 0}
     ctx2 = CheckpointContext(cfg)
     got = ctx2.load({k: torch.zeros_like(v) for k, v in state.items()})
     ctx2.shutdown()
     assert all(got[k].is_cuda and torch.equal(got[k], v)
                for k, v in state.items())
+    # the DIFF replayed on the card: one scatter per leaf of the delta
+    assert ops.launch_counts()["diffunpack"] == 2
 
 
 @pytest.mark.gpu

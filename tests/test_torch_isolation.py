@@ -32,6 +32,25 @@ got = ctx2.load({"x": torch.zeros(4096)})
 ctx2.shutdown()
 assert ctx2.restarted and torch.equal(got["x"], x)
 
+# level 4 with the object-store rung (the default): FULL, DIFF, then a
+# restore from the object store alone, the DIFF replayed onto the template
+import glob, os, shutil
+ocfg = CheckpointConfig(dir=d + "/l4", backend="fti", block_bytes=256,
+                        dedicated_thread=False)
+ctx5 = CheckpointContext(ocfg)
+ctx5.store({"x": x}, id=1, level=4)
+x[4000] = -3.0
+assert ctx5.store({"x": x}, id=2, level=4, kind=CHK_DIFF).kind == CHK_DIFF
+ctx5.shutdown()
+shutil.rmtree(d + "/l4/node-local")
+for g in glob.glob(d + "/l4/global/ckpt-*"):
+    shutil.rmtree(g)
+ctx6 = CheckpointContext(ocfg)
+assert ctx6.tcl.backend.engine.load_latest()[1]["recovered_via"] == "objstore"
+got = ctx6.load({"x": torch.zeros(4096)})
+ctx6.shutdown()
+assert ctx6.restarted and torch.equal(got["x"], x)
+
 # a reduced training step through the flash path, a store, a restore
 import os
 os.environ["REPRO_ATTN_IMPL"] = "flash"
@@ -81,8 +100,9 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     scanned = {str(p.relative_to(SRC / "repro_torch")) for p in paths}
     assert {"models/attention.py", "models/transformer.py",
             "kernels/flashattn.py", "train/step.py", "train/loop.py",
-            "launch/train.py", "data/synthetic.py",
-            "configs/base.py"} <= scanned
+            "launch/train.py", "data/synthetic.py", "configs/base.py",
+            "core/incremental.py", "backends/scr.py", "objstore/tier.py",
+            "objstore/cdc.py", "objstore/chunks.py"} <= scanned
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -136,16 +136,19 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.reset_launch_counts()
     x = torch.arange(5000, dtype=torch.float32)
     ops.blockhash(x, 256)
-    ops.pack_dirty(x, np.array([1, 2], np.int32), 256)
+    rows = ops.pack_dirty(x, np.array([1, 2], np.int32), 256)
+    ops.unpack_dirty(x.clone(), np.array([1, 2], np.int32), rows, 256)
     qkv = x[:4096].reshape(2, 32, 64)
     ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {"blockhash2": 0, "diffpack": 0,
-                                   "flashattn": 0}
+                                   "diffunpack": 0, "flashattn": 0}
     # the kernel wrappers themselves refuse CPU tensors: no silent path
     with pytest.raises(ValueError, match="CUDA tensor"):
         bh.blockhash2(x, 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
         dp.diffpack(x, torch.zeros(1, dtype=torch.int32), 256)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dp.diffunpack(x, rows, torch.zeros(2, dtype=torch.int32), 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention(qkv, qkv, qkv)
     with pytest.raises(IndexError, match="outside"):

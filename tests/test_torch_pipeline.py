@@ -19,7 +19,7 @@ import torch
 
 from repro.core import context as jctx
 from repro_torch.backends.registry import make_backend
-from repro_torch.core.comm import SimulatedCluster
+from repro_torch.core.comm import LocalComm, SimulatedCluster
 from repro_torch.core.context import (
     CHK_DIFF,
     CHK_FULL,
@@ -94,21 +94,29 @@ def test_store_crash_restart_ladder(tmp_path, backend, kind, level):
 
 
 def test_pending_parts_of_the_port_refuse_loudly(tmp_path):
-    """The object-store L4, SCR and incremental stores are later slices:
-    each raises NotImplementedError instead of silently doing less."""
+    """The parts earlier slices left out — the object-store L4, SCR and
+    incremental stores — now work: a level-4 store publishes a catalog
+    entry, an incremental store commits, and SCR stores and restores.
+    Nothing raises NotImplementedError any more."""
     cluster, backends = _backends(tmp_path, "fti", objstore=True)
     names = [t.name for t in backends[0].pipeline.ladder]
     assert names == ["local", "partner", "erasure", "global", "objstore"]
-    assert backends[0].capabilities()["objstore"] is False
-    with pytest.raises(NotImplementedError, match="object-store"):
-        backends[0].tcl_store(_named(0), 1, 4, CHK_FULL)
-    backends[0].tcl_store(_named(0), 2, 1, CHK_FULL)     # L1 still works
+    assert backends[0].capabilities()["objstore"] is True
+    backends[0].tcl_store(_named(0), 1, 4, CHK_FULL)
+    assert backends[0].engine.objstore_tier().catalog.ids() == [1]
+    backends[0].tcl_store(_named(0), 2, 1, CHK_FULL)
     assert backends[0].engine.load_latest()[1]["id"] == 2
-    with pytest.raises(NotImplementedError, match="incremental"):
-        backends[0].tcl_store_begin(3, 1)
-    with pytest.raises(NotImplementedError, match="SCR"):
-        make_backend(StorageConfig(root=str(tmp_path / "s")),
-                     cluster.comms[0], "scr")
+    inc = backends[0].tcl_store_begin(3, 1)
+    inc.add(_named(0, 5.0))
+    assert inc.commit().kind == CHK_FULL
+    named, meta = backends[0].engine.load_latest()
+    assert meta["id"] == 3 and meta["incremental"] and named["w"][0] == 5.0
+    scr = make_backend(StorageConfig(root=str(tmp_path / "s")),
+                       LocalComm(str(tmp_path / "s" / "nl")), "scr")
+    scr.tcl_store(_named(0, 2.0), 1, 4, CHK_FULL)
+    assert scr.tcl_load()["w"][0] == 2.0
+    for b in backends:
+        b.tcl_finalize()
 
 
 # --------------------------------------------------------------------------- #
