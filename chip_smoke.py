@@ -46,7 +46,7 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    after) must be two per layer and step.
 6. The rest of the main path, with the default ``CheckpointConfig``
    (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
-   same tinyllama-1.1b-shaped state (depth ``--objstore-layers``): a FULL
+   same tinyllama-1.1b-shaped state (depth ``--layers``): a FULL
    L4 store, a sparse update, a DIFF L4 store (the second store's uploaded
    bytes against the first's); the node-local and global directories
    wiped, a fresh context restores from the object store alone, replaying
@@ -108,8 +108,6 @@ _ALU_PIPE_OPS = {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
 
 BLOCK_BYTES = 65_536
 SEED = 0
-#: decoder layers of phase 6 (see --objstore-layers)
-OBJSTORE_LAYERS = 22
 
 
 def fail(msg: str) -> None:
@@ -617,15 +615,25 @@ def bound(bytes_moved: float, words: float = 0.0, per_word=None):
     return times[by], by
 
 
-def pack_bytes(t, idx, block_bytes: int) -> int:
-    """Bytes diffpack must move for dirty blocks ``idx`` (numpy) of leaf
-    ``t``: the leaf's own bytes in each block read once, each full row of
-    the output written once, and the indices read once.  diffunpack moves
-    the same bytes the other way: each packed row read once, the leaf's
-    own bytes in each block written once, the indices read once."""
+def leaf_bytes_in(t, idx, block_bytes: int) -> int:
+    """The bytes of leaf ``t`` that lie in its blocks ``idx`` (numpy)."""
     nbytes = t.numel() * t.element_size()
-    read = sum(min(block_bytes, nbytes - int(i) * block_bytes) for i in idx)
-    return read + len(idx) * (block_bytes + 4)
+    return sum(min(block_bytes, nbytes - int(i) * block_bytes) for i in idx)
+
+
+def pack_bytes(t, idx, block_bytes: int) -> int:
+    """Bytes diffpack must move for dirty blocks ``idx`` of leaf ``t``: the
+    leaf's own bytes in each block read once, each full row of the output
+    written once, and the indices read once."""
+    return leaf_bytes_in(t, idx, block_bytes) + len(idx) * (block_bytes + 4)
+
+
+def unpack_bytes(t, idx, block_bytes: int) -> int:
+    """Bytes diffunpack must move for dirty blocks ``idx`` of leaf ``t``:
+    of each packed row only the part below the leaf's end is read, the
+    leaf's own bytes in each block are written once, the indices read
+    once."""
+    return 2 * leaf_bytes_in(t, idx, block_bytes) + 4 * len(idx)
 
 
 def dirty_jobs(torch, state, ids, block_bytes: int):
@@ -709,7 +717,7 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     # same bytes, so the state stays as it is)
     ujobs = dirty_jobs(torch, state, ids4, bb)
     u_dirty = sum(len(i) for _, i in ujobs)
-    u_moved = sum(pack_bytes(t, i, bb) for t, i in ujobs)
+    u_moved = sum(unpack_bytes(t, i, bb) for t, i in ujobs)
     ujobs = [(t, torch.from_numpy(i).cuda()) for t, i in ujobs]
     ujobs = [(t, i, dp.diffpack(t, i, bb)) for t, i in ujobs]
     ujobs_b = [(ops.as_u32_blocks(t, bb)[0], i, r, i.to(torch.int64))
@@ -729,7 +737,7 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     u = device_ms(torch, lambda: dp.diffunpack(t, r, i, bb))
     u_plain = device_ms(torch, lambda: ref.diffunpack_ref(b, r, i))
     u_lib = device_ms(torch, lambda: b.index_copy_(0, i64, r))
-    u_b, _ = bound(pack_bytes(t, i.cpu().numpy(), bb))
+    u_b, _ = bound(unpack_bytes(t, i.cpu().numpy(), bb))
     log(f"[time] params/embed alone: diffunpack of {i.numel()} dirty blocks "
         f"{u:.4f} ms (bound {u_b:.3g} ms by bytes; plain {u_plain:.4f} ms; "
         f"index_copy_ {u_lib:.4f} ms)")
@@ -1091,7 +1099,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"256 KiB / 1 MiB / 4 MiB, {256 if on_card else 8} MiB of random "
         f"bytes)")
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    state = tinyllama_state(torch, args.objstore_layers, args.width_div,
+    state = tinyllama_state(torch, args.layers, args.width_div,
                             device, gen)
     sync(torch, device)
     named = flatten_named(state)
@@ -1101,7 +1109,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
     sparse_leaves = 2 + len(norms_of(state)) + 1
-    log(f"[obj] state: {args.objstore_layers} of 22 layers, {len(named)} "
+    log(f"[obj] state: {args.layers} of 22 layers, {len(named)} "
         f"leaves, {nbytes / 1e9:.2f} GB on {device}")
 
     def want_dirty(ids):
@@ -1141,7 +1149,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         return got, seen["meta"], time.time() - t
 
     shutil.rmtree(OBJ_DIR, ignore_errors=True)
-    out = {"depth": args.objstore_layers, "cdc_mb_s": rate}
+    out = {"depth": args.layers, "cdc_mb_s": rate}
     ttrace.reset()
     ttrace.enable()
     ops.reset_launch_counts()
@@ -1278,11 +1286,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--layers", type=int, default=22,
-                    help="decoder layers of phases 3 and 5 (the only cut "
-                         "allowed there on the card)")
-    ap.add_argument("--objstore-layers", type=int, default=OBJSTORE_LAYERS,
-                    help="decoder layers of phase 6 (its CDC chunking runs "
-                         "on the host, and sets its time)")
+                    help="decoder layers of phases 3 and 6 (the only cut "
+                         "allowed on the card; training keeps all 22)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,

@@ -30,7 +30,7 @@ buffers on the host with numpy, then bit-cast back to the leaf dtype/shape
 (as in the JAX package).  When the restart template's leaf is a tensor,
 the restore instead places the decoded base on the template's device once
 and scatters each delta's dirty blocks into it in place
-(:func:`apply_delta_tensor`: the diffunpack kernel on the card, its plain
+(:class:`TensorReplay`: the diffunpack kernel on the card, its plain
 version on the CPU) — the same bytes, without copying the whole leaf to
 the device once per delta.
 """
@@ -42,10 +42,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.formats import numpy_to_tensor
+from repro_torch.core.formats import numpy_to_tensor, str_to_torch_dtype
 from repro_torch.core.formats import str_to_dtype as str_dtype
 from repro_torch.core.protect import leaf_dtype_str
 from repro_torch.kernels import ops
+from repro_torch.kernels.blockhash import n_blocks_of
 
 
 @dataclass
@@ -205,9 +206,66 @@ def apply_delta(buf: np.ndarray, dirty_idx: np.ndarray, payload: np.ndarray,
     return blocks.reshape(-1)
 
 
-def apply_delta_tensor(leaf: torch.Tensor, dirty_idx: np.ndarray,
-                       payload: np.ndarray, block_bytes: int) -> torch.Tensor:
-    """:func:`apply_delta` on a contiguous leaf tensor, in place: its bytes
-    viewed as ``block_bytes`` blocks, the packed dirty blocks copied to the
-    leaf's device and scattered by ``ops.unpack_dirty``.  → ``leaf``."""
-    return ops.unpack_dirty(leaf, dirty_idx, payload, block_bytes)
+class TensorReplay:
+    """One leaf's DIFF chain replayed onto a device: planned on the host by
+    :meth:`add` and :meth:`finish`, run by :meth:`run`.
+
+    It gives the numpy replay's bytes.  That replay scatters whole rows
+    into the base's zero-padded u32 buffer and keeps the first bytes, as
+    many as the last delta's dtype and shape need.  Here the leaf is made
+    once on the device at that final size, from the base's bytes (zeros
+    past the base's end), and each delta's rows are scattered into it in
+    place by ``ops.unpack_dirty`` — the diffunpack kernel on the card, its
+    plain version on the CPU — which writes only bytes below the leaf's
+    end, the only bytes the numpy replay keeps.  :meth:`add` and
+    :meth:`finish` raise, on the host, where the numpy replay would raise
+    on the same data, so :meth:`run` can fail only on the device."""
+
+    def __init__(self, base: np.ndarray, block_bytes: int):
+        self.base = np.ascontiguousarray(base)
+        # the numpy replay's buffer: the base padded to whole blocks
+        self.padded = n_blocks_of(self.base.nbytes, block_bytes) * block_bytes
+        self.deltas: List[Tuple[np.ndarray, np.ndarray, int]] = []
+        self.dtype: Optional[str] = None
+        self.shape: List[int] = []
+        self.nbytes = 0
+
+    def add(self, dirty_idx: np.ndarray, payload: np.ndarray,
+            block_bytes: int, dtype: str, shape: List[int]) -> None:
+        """A delta of the chain, in order; the leaf takes its dtype and
+        shape."""
+        if self.padded % block_bytes:
+            raise ValueError(f"block_bytes {block_bytes} does not divide the "
+                             f"replay buffer's {self.padded} bytes")
+        idx = ops.check_dirty_indices(dirty_idx, self.padded // block_bytes)
+        if tuple(payload.shape) != (idx.size, block_bytes // 4):
+            raise ValueError(f"packed rows {tuple(payload.shape)} != "
+                             f"({idx.size}, {block_bytes // 4})")
+        self.deltas.append((idx, payload, block_bytes))
+        self.dtype, self.shape = dtype, list(shape)
+
+    def finish(self) -> None:
+        """Check the final leaf against the replay buffer and drop the rows
+        that lie wholly past its end."""
+        n = int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+        self.nbytes = n * str_dtype(self.dtype).itemsize
+        if self.nbytes > self.padded:
+            raise ValueError(f"leaf of {self.nbytes} B outgrows its replay "
+                             f"buffer of {self.padded} B")
+        kept = []
+        for idx, payload, bb in self.deltas:
+            keep = idx < n_blocks_of(self.nbytes, bb)
+            kept.append((idx[keep], payload[keep], bb))
+        self.deltas = kept
+
+    def run(self, device: Any) -> torch.Tensor:
+        """The replayed leaf, a new tensor on ``device``."""
+        buf = torch.zeros(self.nbytes, dtype=torch.uint8, device=device)
+        raw = self.base.reshape(-1).view(np.uint8)[: self.nbytes]
+        if raw.size:
+            buf[: raw.size].copy_(torch.from_numpy(
+                raw if raw.flags.writeable else raw.copy()))
+        leaf = buf.view(str_to_torch_dtype(self.dtype)).view(tuple(self.shape))
+        for idx, payload, bb in self.deltas:
+            ops.unpack_dirty(leaf, idx, payload, bb)
+        return leaf

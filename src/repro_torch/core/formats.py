@@ -122,6 +122,14 @@ def torch_dtype_to_str(dt: torch.dtype) -> str:
     return torch.empty(0, dtype=dt).numpy().dtype.str
 
 
+def str_to_torch_dtype(s: str) -> torch.dtype:
+    """torch dtype of a CHK5 dtype string (the inverse of
+    :func:`torch_dtype_to_str`; needs no ml_dtypes)."""
+    if s in _VIA_INT_BY_NAME:
+        return _VIA_INT_BY_NAME[s][0]
+    return torch.from_numpy(np.zeros(0, np.dtype(s))).dtype
+
+
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` as a numpy array with the same bytes.  The
     device→host copy has completed when this returns, and a CPU tensor is

@@ -38,9 +38,12 @@ reported as ``recovered_via`` in the restored metadata).
 
 DIFF replay follows the restart template: a leaf whose template is a
 tensor has its FULL base placed on the template's device once and every
-later delta scattered into it there (``diff.apply_delta_tensor``: the
+later delta scattered into it there (``diff.TensorReplay``: the
 diffunpack kernel on the card); every other leaf replays with numpy on
-the host, as in the JAX package.  Both give the same bytes.
+the host, as in the JAX package.  Both give the same bytes.  The chain is
+read, verified and planned first, inside the walk's fallback; the replay
+on the device runs after it, so a device error is raised, never taken for
+a bad checkpoint.
 """
 from __future__ import annotations
 
@@ -60,19 +63,12 @@ from repro_torch.core.comm import Communicator
 from repro_torch.core.diff import (
     DiffEngine,
     LeafDelta,
+    TensorReplay,
     apply_delta,
-    apply_delta_tensor,
     leaf_to_u32_flat,
     u32_flat_to_leaf,
 )
-from repro_torch.core.formats import (
-    CHK5Reader,
-    CHK5Writer,
-    numpy_to_tensor,
-    str_to_dtype,
-    tensor_to_numpy,
-    torch_dtype_to_str,
-)
+from repro_torch.core.formats import CHK5Reader, CHK5Writer
 from repro_torch.core.protect import CHK_DIFF, CHK_FULL, Protect, to_host
 from repro_torch.core.resharding import split_sharded
 from repro_torch.core.tiers import (
@@ -668,9 +664,12 @@ class CheckpointPipeline:
         ``devices`` (path → device) that a DIFF link of the chain touches:
         each of those is placed on its device once, from its FULL base, and
         comes back as a tensor there with every delta scattered into it in
-        place.  A checkpoint holding sharded leaves (written by the JAX
-        package's shard-local store) is not restorable by this port yet:
-        the walk warns and falls back to an older id."""
+        place.  A checkpoint whose containers fail to read, parse or verify
+        — one holding sharded leaves (written by the JAX package's
+        shard-local store) too, which this port cannot restore yet — makes
+        the walk warn and fall back to an older id.  The replay on the
+        devices runs after that walk: an error there (a kernel that does
+        not build or launch, a device out of memory) is raised."""
         rank = self.comm.rank if rank is None else rank
         by_id: Dict[int, List[str]] = {}
         for i, root in self.available_ids():
@@ -688,7 +687,10 @@ class CheckpointPipeline:
                     RuntimeWarning)
                 continue
             if got is not None:
-                return got
+                named, replays, meta = got
+                for name, replay in replays.items():
+                    named[name] = replay.run(devices[name])
+                return named, meta
         return None
 
     def _root_rank(self, root: str) -> int:
@@ -736,7 +738,7 @@ class CheckpointPipeline:
 
         named: Dict[str, Any] = {}
         flat_u32: Dict[str, np.ndarray] = {}        # host replay buffers
-        on_dev: Dict[str, torch.Tensor] = {}        # device replay leaves
+        replays: Dict[str, TensorReplay] = {}       # device replays, planned
         meta_shape: Dict[str, Tuple[str, List[int]]] = {}
         bb = None
         for blob, man, _root in chain:
@@ -757,34 +759,24 @@ class CheckpointPipeline:
                     name = ds[len("data/"):]
                     named[name] = decode_leaf(rd, ds)
                     flat_u32.pop(name, None)
-                    on_dev.pop(name, None)
+                    replays.pop(name, None)
                     meta_shape.pop(name, None)
                 elif ds.startswith("delta/") and ds.endswith("/digest"):
                     name = ds[len("delta/"): -len("/digest")]
                     info = rd.info(ds)["attrs"]
                     idx = rd.read_dataset(f"delta/{name}/idx")
                     blocks = rd.read_dataset(f"delta/{name}/blocks")
-                    if name not in flat_u32 and name not in on_dev:
+                    if name not in flat_u32 and name not in replays:
                         if name not in named:
                             return None     # chain broken
                         if devices.get(name) is not None:
-                            on_dev[name] = numpy_to_tensor(named[name],
-                                                           devices[name])
+                            replays[name] = TensorReplay(named[name], bb)
                         else:
                             flat_u32[name] = leaf_to_u32_flat(named[name], bb)
                     dt, shp = info["dtype"], info["shape"]
-                    if name in on_dev:
-                        t = _reshape_for_delta(on_dev[name], dt, shp)
-                        if t is None:
-                            # the leaf changed dtype or size within the
-                            # chain: its host buffer reinterprets the
-                            # padded bytes, as the JAX package does
-                            flat_u32[name] = leaf_to_u32_flat(
-                                tensor_to_numpy(on_dev.pop(name)), bb)
-                        else:
-                            on_dev[name] = apply_delta_tensor(t, idx, blocks,
-                                                              bb)
-                    if name in flat_u32:
+                    if name in replays:
+                        replays[name].add(idx, blocks, bb, dt, shp)
+                    else:
                         flat_u32[name] = apply_delta(flat_u32[name], idx,
                                                      blocks, bb)
                     meta_shape[name] = (dt, shp)
@@ -792,20 +784,7 @@ class CheckpointPipeline:
         for name, buf in flat_u32.items():
             dt, shp = meta_shape[name]
             named[name] = u32_flat_to_leaf(buf, dt, shp)
-        named.update(on_dev)
+        for replay in replays.values():
+            replay.finish()
         final_meta = dict(chain[-1][1], recovered_via=via)
-        return named, final_meta
-
-
-def _reshape_for_delta(t: torch.Tensor, dtype: str, shape: List[int]
-                       ) -> Optional[torch.Tensor]:
-    """``t`` (contiguous) as the leaf a delta describes — itself, or a view
-    with the delta's shape — or None when the delta's leaf has another
-    dtype or byte count (the device replay then hands the leaf to the host
-    replay)."""
-    if torch_dtype_to_str(t.dtype) != dtype:
-        return None
-    n = int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
-    if n * str_to_dtype(dtype).itemsize != t.numel() * t.element_size():
-        return None
-    return t if list(t.shape) == list(shape) else t.view(shape)
+        return named, replays, final_meta

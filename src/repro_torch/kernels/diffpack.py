@@ -72,21 +72,12 @@ def diffpack(x: torch.Tensor, dirty_idx: torch.Tensor, block_bytes: int
     return out
 
 
-def diffunpack(x: torch.Tensor, packed: torch.Tensor,
-               dirty_idx: torch.Tensor, block_bytes: int) -> torch.Tensor:
-    """Write packed row k into block ``dirty_idx[k]`` of a contiguous CUDA
-    tensor's C-order bytes, in place, and return ``x``.  Only bytes below
-    the leaf's end are written (the reference's zero padding past it is
-    dropped on restore anyway).  ``packed`` is ``(n_dirty, block_bytes/4)``
-    int32 (u32 bits) and the indices int32, both on ``x``'s card; the
-    indices must lie in ``[0, n_blocks)`` and increase strictly
-    (``ops.unpack_dirty`` checks both on the host before the copy).
-
-    A non-contiguous ``x`` is refused: a contiguous copy would take the
-    writes and lose them.  Launches the kernel on the current stream or
-    raises."""
-    if not x.is_cuda:
-        raise ValueError(f"diffunpack takes a CUDA tensor, got {x.device}")
+def check_unpack_args(x: torch.Tensor, packed: torch.Tensor,
+                      dirty_idx: torch.Tensor, block_bytes: int) -> None:
+    """The arguments of an in-place scatter into ``x``, on either device: a
+    contiguous target (a contiguous copy would take the writes and lose
+    them), 1-d int32 indices and ``(n_dirty, block_bytes/4)`` int32 rows,
+    both on ``x``'s device."""
     if not x.is_contiguous():
         raise ValueError("diffunpack writes in place: the target tensor "
                          "must be contiguous")
@@ -101,9 +92,26 @@ def diffunpack(x: torch.Tensor, packed: torch.Tensor,
     n_dirty = dirty_idx.numel()
     if (packed.device != x.device or packed.dtype != torch.int32
             or tuple(packed.shape) != (n_dirty, block_bytes // 4)):
-        raise ValueError(f"packed must be a ({n_dirty}, {block_bytes // 4}) "
-                         f"int32 tensor on {x.device}, got {packed.dtype} "
-                         f"{tuple(packed.shape)} on {packed.device}")
+        raise ValueError(f"packed rows must be a ({n_dirty}, "
+                         f"{block_bytes // 4}) int32 tensor on {x.device}, "
+                         f"got {packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+
+
+def diffunpack(x: torch.Tensor, packed: torch.Tensor,
+               dirty_idx: torch.Tensor, block_bytes: int) -> torch.Tensor:
+    """Write packed row k into block ``dirty_idx[k]`` of a contiguous CUDA
+    tensor's C-order bytes, in place, and return ``x``.  Only bytes below
+    the leaf's end are written (the reference's zero padding past it is
+    dropped on restore anyway).  The arguments are as
+    :func:`check_unpack_args` says; the indices must lie in ``[0,
+    n_blocks)`` and increase strictly (``ops.unpack_dirty`` checks both on
+    the host before the copy).  Launches the kernel on the current stream
+    or raises."""
+    if not x.is_cuda:
+        raise ValueError(f"diffunpack takes a CUDA tensor, got {x.device}")
+    check_unpack_args(x, packed, dirty_idx, block_bytes)
+    n_dirty = dirty_idx.numel()
     if n_dirty == 0:
         return x
     data = x.detach()

@@ -91,30 +91,34 @@ def pack_dirty(x: torch.Tensor, dirty_idx: np.ndarray,
     return ref.diffpack_ref(blocks, idx_t)
 
 
+def check_dirty_indices(dirty_idx: np.ndarray, n_blocks: int) -> np.ndarray:
+    """Host check of the block indices a scatter writes: integers, each in
+    ``[0, n_blocks)``, strictly increasing (a repeated index would race on
+    the card).  → the indices as a flat int32 array."""
+    idx = np.ascontiguousarray(dirty_idx).reshape(-1)
+    if idx.size and not np.issubdtype(idx.dtype, np.integer):
+        raise TypeError(f"dirty block indices must be integers, got "
+                        f"{idx.dtype}")
+    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
+        raise IndexError(f"dirty block index outside [0, {n_blocks})")
+    if idx.size > 1 and not bool(np.all(np.diff(idx) > 0)):
+        raise ValueError("dirty block indices must increase strictly")
+    return idx.astype(np.int32)
+
+
 def unpack_dirty(x: torch.Tensor, dirty_idx: np.ndarray, packed: Any,
                  block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
     """Scatter packed blocks into ``x`` in place — the inverse of
     :func:`pack_dirty` — and return ``x``: block ``dirty_idx[k]`` of
     ``x``'s C-order bytes becomes row k of ``packed`` (``(n_dirty,
     block_bytes/4)`` u32 words, host ``np.uint32`` or int32 bits), bytes
-    past the leaf's end dropped.  The indices are checked here, on the
-    host, before anything moves to the device: each in ``[0, n_blocks)``
-    and strictly increasing (a repeated index would race on the card).
+    past the leaf's end dropped.  The indices are checked on the host
+    (:func:`check_dirty_indices`) before anything moves to the device.
     ``x`` must be contiguous: the writes land in its own storage."""
     _check_device(x)
-    if not x.is_contiguous():
-        raise ValueError("unpack_dirty writes in place: the target tensor "
-                         "must be contiguous")
-    idx = np.ascontiguousarray(dirty_idx).reshape(-1)
-    if idx.size and not np.issubdtype(idx.dtype, np.integer):
-        raise TypeError(f"dirty block indices must be integers, got "
-                        f"{idx.dtype}")
     n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
-    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
-        raise IndexError(f"dirty block index outside [0, {n_blocks})")
-    if idx.size > 1 and not bool(np.all(np.diff(idx) > 0)):
-        raise ValueError("dirty block indices must increase strictly")
-    idx = idx.astype(np.int32)
+    idx_t = torch.from_numpy(check_dirty_indices(dirty_idx, n_blocks)
+                             ).to(x.device)
     if isinstance(packed, torch.Tensor):
         rows = packed.detach()
     else:
@@ -122,19 +126,15 @@ def unpack_dirty(x: torch.Tensor, dirty_idx: np.ndarray, packed: Any,
         if not words.flags.writeable:   # rows read straight from a container
             words = words.copy()
         rows = torch.from_numpy(words)
-    if tuple(rows.shape) != (idx.size, block_bytes // 4):
-        raise ValueError(f"packed rows {tuple(rows.shape)} != "
-                         f"({idx.size}, {block_bytes // 4})")
-    if idx.size == 0 or x.numel() == 0:
-        return x                    # nothing to write below the leaf's end
-    idx_t = torch.from_numpy(idx).to(x.device)
     rows = rows.to(x.device, torch.int32)
     if x.is_cuda:
         return dp.diffunpack(x, rows, idx_t, block_bytes)
-    blocks, _ = as_u32_blocks(x, block_bytes)
-    out = ref.diffunpack_ref(blocks, rows, idx_t)
-    raw = x.detach().reshape(-1).view(torch.uint8)
-    raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
+    dp.check_unpack_args(x, rows, idx_t, block_bytes)
+    if x.numel():
+        blocks, _ = as_u32_blocks(x, block_bytes)
+        out = ref.diffunpack_ref(blocks, rows, idx_t)
+        raw = x.detach().reshape(-1).view(torch.uint8)
+        raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
     return x
 
 

@@ -12,6 +12,8 @@ delta, a DIFF whose base was stored with ``compress="int8"`` or
 ``precision="bf16"``, and ragged last blocks (sub-word tails, a 0-byte
 leaf).  Inputs are numpy arrays from a seed, handed to both packages.
 """
+import warnings
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -19,8 +21,8 @@ import pytest
 import torch
 
 from repro.core import context as jctx
+from repro.core import diff as jdiff
 from repro.kernels.diffpack import diffunpack_pallas
-from repro_torch.core import pipeline as tpipe
 from repro_torch.core.context import (
     CHK_DIFF,
     CHK_FULL,
@@ -28,7 +30,13 @@ from repro_torch.core.context import (
     CheckpointContext,
     Protect,
 )
-from repro_torch.core.diff import apply_delta, leaf_to_u32_flat, u32_flat_to_leaf
+from repro_torch.core import diff as tdiff
+from repro_torch.core.diff import (
+    TensorReplay,
+    apply_delta,
+    leaf_to_u32_flat,
+    u32_flat_to_leaf,
+)
 from repro_torch.core.formats import dtype_to_str, numpy_to_tensor, tensor_to_numpy
 from repro_torch.core.protect import flatten_named, from_numpy_named, unflatten_named
 from repro_torch.kernels import ops
@@ -242,13 +250,13 @@ def test_tensor_template_replay_equals_numpy_replay(tmp_path, monkeypatch,
 
     # the replay on the template's device, counted
     calls = []
-    real = tpipe.apply_delta_tensor
+    real = ops.unpack_dirty
 
     def spy(leaf, idx, blocks, bb):
         calls.append(idx.size)
         return real(leaf, idx, blocks, bb)
 
-    monkeypatch.setattr(tpipe, "apply_delta_tensor", spy)
+    monkeypatch.setattr(ops, "unpack_dirty", spy)
     ctx = CheckpointContext(CheckpointConfig(dir=d, objstore=False))
     z = _zeros()
     got = ctx.load(unflatten_named(from_numpy_named(flatten_named(z)), z))
@@ -321,6 +329,116 @@ def test_leaf_reshaped_within_the_chain_replays_like_numpy(tmp_path):
     assert isinstance(dev["x"], torch.Tensor) and list(dev["x"].shape) == [30, 20]
     assert tensor_to_numpy(dev["x"]).tobytes() == host["x"].tobytes()
     assert host["x"].tobytes() == x.numpy().tobytes()
+
+
+def test_device_replay_error_is_raised_not_taken_for_a_bad_checkpoint(
+        tmp_path, monkeypatch):
+    """FULL 1 + DIFF 2: when the scatter fails (on the card: a kernel that
+    does not build or launch, a device out of memory), the restore raises;
+    it does not warn and fall back to the FULL, losing the DIFF's step."""
+    d = str(tmp_path / "e")
+    ctx = CheckpointContext(CheckpointConfig(dir=d, block_bytes=BB,
+                                             objstore=False,
+                                             dedicated_thread=False))
+    x = torch.arange(2048, dtype=torch.float32)
+    ctx.store({"x": x}, id=1, level=1)
+    x[7] = -1.0
+    ctx.store({"x": x}, id=2, level=1, kind=CHK_DIFF)
+    ctx.shutdown()
+
+    def broken(*_a, **_k):
+        raise RuntimeError("diffunpack: launch failed")
+
+    monkeypatch.setattr(ops, "unpack_dirty", broken)
+    eng = CheckpointContext(CheckpointConfig(dir=d, objstore=False))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)   # nor a fallback
+        with pytest.raises(RuntimeError, match="launch failed"):
+            eng.tcl.backend.engine.load_latest(
+                devices={"x": torch.device("cpu")})
+        with pytest.raises(RuntimeError, match="launch failed"):
+            eng.load({"x": torch.zeros(2048)})
+    # the host replay does not scatter through it, and finds id 2
+    host, meta = eng.tcl.backend.engine.load_latest()
+    eng.shutdown()
+    assert meta["id"] == 2 and host["x"].tobytes() == x.numpy().tobytes()
+
+
+def _numpy_replay(pkg, base, deltas, dtype, shape):
+    buf = pkg.leaf_to_u32_flat(base, BB)
+    for idx, rows in deltas:
+        buf = pkg.apply_delta(buf, idx, rows, BB)
+    return pkg.u32_flat_to_leaf(buf, dtype, shape)
+
+
+def _rows(rng, idx):
+    return rng.randint(0, 2**32, size=(len(idx), BB // 4), dtype=np.uint64
+                       ).astype(np.uint32)
+
+
+#: base, then (dirty blocks, dtype, shape) per delta: leaves that change
+#: dtype or size within the chain, as the numpy replay reinterprets them
+_LAYOUTS = {
+    "same": (np.float32, 1000, [([0, 15], "<f4", [1000]),
+                                ([3], "<f4", [1000])]),
+    "shrink": (np.float32, 1000, [([15], "<f4", [990])]),
+    "grow within the padding": (np.float32, 1001, [([0], "<f4", [1020])]),
+    "shrink then grow": (np.float32, 1000, [([2, 14], "<f4", [900]),
+                                            ([0], "<f4", [1000])]),
+    "rows past the final end": (np.float32, 1000, [([1, 13, 15], "<f4",
+                                                    [1000]),
+                                                   ([1], "|u1", [3000])]),
+    "dtype and shape": (ml_dtypes.bfloat16, 1001, [([0, 7], "<f2",
+                                                    [13, 77]),
+                                                   ([7], "<i4", [500])]),
+    "0-d": (np.int32, None, [([0], "<i4", [])]),
+    "to empty": (np.float32, 10, [([0], "<f4", [0])]),
+}
+
+
+@pytest.mark.parametrize("case", list(_LAYOUTS))
+def test_tensor_replay_equals_numpy_replay_across_layouts(case):
+    """A leaf whose dtype or byte count changes within the chain replays on
+    its device to the bytes the numpy replay of both packages gives."""
+    dt0, n0, spec = _LAYOUTS[case]
+    rng = np.random.RandomState(len(case))
+    base = (rng.randn(n0) * 100).astype(dt0) if n0 is not None else \
+        np.asarray(np.int32(7))
+    deltas = [(np.asarray(i, np.int32), _rows(rng, i)) for i, _, _ in spec]
+    dtype, shape = spec[-1][1], spec[-1][2]
+    want = _numpy_replay(jdiff, base, deltas, dtype, shape)
+    assert _numpy_replay(tdiff, base, deltas, dtype, shape).tobytes() == \
+        want.tobytes()
+    replay = TensorReplay(base, BB)
+    for (idx, rows), (_, dt, shp) in zip(deltas, spec):
+        replay.add(idx, rows, BB, dt, shp)
+    replay.finish()
+    got = replay.run(torch.device("cpu"))
+    assert isinstance(got, torch.Tensor) and got.is_contiguous()
+    got = tensor_to_numpy(got)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+def test_tensor_replay_refuses_on_the_host_what_the_numpy_replay_refuses():
+    base = np.arange(1000, dtype=np.float32)            # 16 blocks of 256 B
+    rows = np.zeros((1, BB // 4), np.uint32)
+    with pytest.raises(IndexError):
+        _numpy_replay(jdiff, base, [(np.array([16], np.int32), rows)],
+                      "<f4", [1000])
+    with pytest.raises(IndexError, match="outside"):
+        TensorReplay(base, BB).add(np.array([16], np.int32), rows, BB,
+                                   "<f4", [1000])
+    with pytest.raises(ValueError):                     # outgrows the buffer
+        _numpy_replay(jdiff, base, [(np.array([0], np.int32), rows)],
+                      "<f4", [1100])
+    replay = TensorReplay(base, BB)
+    replay.add(np.array([0], np.int32), rows, BB, "<f4", [1100])
+    with pytest.raises(ValueError, match="outgrows"):
+        replay.finish()
+    with pytest.raises(ValueError, match="packed rows"):
+        TensorReplay(base, BB).add(np.array([0, 1], np.int32), rows, BB,
+                                   "<f4", [1000])
 
 
 def test_empty_leaf_from_numpy_hashes_like_the_reference():
