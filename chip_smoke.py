@@ -13,10 +13,14 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block) and
    ``diffunpack`` against ``diffunpack_ref`` (the same counts into a zeros
    and a random base, ragged last block, every dtype width, unaligned
-   storage offsets, a 0-byte leaf), bit for bit; ``flashattn`` against
-   ``flash_attention_ref`` at tinyllama's
-   attention shape (B 4, S 2048, 32 heads of 64) causal and not, and at
-   S 256: bf16 within one bf16 ulp of the output, f32 within 2e-5, and the
+   storage offsets, a 0-byte leaf), bit for bit, and ``diffpack_many``
+   (every pack case in one table) against per-leaf ``diffpack`` and
+   ``diffpack_ref``; ``flashattn`` against ``flash_attention_ref`` at
+   tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
+   not, and at S 256, and its grouped entry against
+   ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
+   heads), at dh 128, H/KV 1 and 8, Sk ≠ S: bf16 within one bf16 ulp of
+   the output and two launches bit-equal, f32 within 2e-5, and the
    autograd gradient (kernel forward, plain backward) within 1e-4 of
    autograd through the plain version, in f32.
 3. The directive path at full width: a tinyllama-1.1b-shaped state
@@ -29,7 +33,8 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    restart into a zeros template on the card, which replays the last DIFF
    there (diffunpack) and must equal the final state bit for bit.  The
    kernels' launch counts are reset just before and read just after, and
-   must match the leaves hashed, packed and unpacked.
+   must match the leaves hashed and unpacked and the DIFF stores packed
+   (one ``diffpack`` launch per store).
 4. Timing on the card (CUDA events, median of 20 after warm-up) of each
    kernel, its plain version and, where one exists, a PyTorch call
    computing the same function, beside the bound: the larger of bytes over
@@ -305,14 +310,14 @@ def main_path(torch, args, device, ops):
         f"in {restore_s:.2f} s (FULL 3 + DIFF 4, the DIFF replayed on "
         f"{device}) (restarted={ctx2.restarted})")
 
-    want_launch = {"blockhash2": 4 * len(named),
-                   "diffpack": 2 * sparse_leaves,
+    # one pack launch per DIFF store (stores 2 and 4)
+    want_launch = {"blockhash2": 4 * len(named), "diffpack": 2,
                    "diffunpack": sparse_leaves, "flashattn": 0}
     log(f"[main] kernel launches: stores {store_launches}, stores and "
         f"restore {launches} (expected on the card: {want_launch})")
     if device.type == "cuda" and launches != want_launch:
-        fail("launch counts do not match the leaves hashed, packed and "
-             "unpacked")
+        fail("launch counts do not match the leaves hashed and unpacked "
+             "and the DIFF stores packed")
     compare_replay(torch, cfg, named, device)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return state, ids2, ids4, launches, restore_s
@@ -427,6 +432,42 @@ def check_kernels(torch, device, ops, ref, bh, dp):
               np.array([1, 0], np.int32))
     pack_case("block_bytes 256", f[:10_001], np.arange(0, 157, 3,
                                                         dtype=np.int32), 256)
+
+    def pack_many_case(name, cases, bb=BLOCK_BYTES):
+        """diffpack_many over every (leaf, indices) of ``cases`` in one
+        launch, against per-leaf diffpack and diffpack_ref."""
+        n0 = dp.LAUNCHES.n
+        got = dp.diffpack_many([x for x, _ in cases], [i for _, i in cases],
+                               bb)
+        if dp.LAUNCHES.n != n0 + 1:
+            fail(f"diffpack_many {name}: not one launch")
+        rows = [(torch.from_numpy(i).to(device), x) for x, i in cases]
+        per_leaf = torch.cat([dp.diffpack(x, i, bb) for i, x in rows])
+        plain = torch.cat([ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0], i)
+                           for i, x in rows])
+        torch.cuda.synchronize()
+        err = max(u32_max_abs_diff(torch, got, per_leaf),
+                  u32_max_abs_diff(torch, got, plain))
+        worst["diffpack"] = max(worst["diffpack"], err)
+        if err:
+            fail(f"diffpack_many {name}: differs from per-leaf diffpack or "
+                 f"diffpack_ref")
+
+    many = []
+    for k in (1, 7, 2000):
+        idx = np.sort(rng.choice(nb, size=k, replace=False)).astype(np.int32)
+        idx[-1] = nb - 1
+        many.append((emb, idx))
+    many += [(rag, np.array([6, 0, 3], np.int32)),           # ragged block
+             (raw[3:3 + BLOCK_BYTES + 17], np.array([1, 0], np.int32)),
+             (torch.zeros(0, device=device), np.array([0], np.int32)),
+             (f[:7].to(torch.bfloat16), np.zeros(0, np.int32))]
+    pack_many_case("the pack cases in one table (unaligned view, 0-byte "
+                   "leaf, ragged last block, a leaf with no dirty block)",
+                   many)
+    pack_many_case("block_bytes 256", [
+        (f[:10_001], np.arange(0, 157, 3, dtype=np.int32)),
+        (raw[3:1003], np.array([3, 0], np.int32))], 256)
     def unpack_case(name, x, idx, rows=None, bb=BLOCK_BYTES):
         """Scatter ``rows`` (default: random u32 words) into ``x`` at
         ``idx`` with the kernel, in place; the plain version scatters into
@@ -501,8 +542,9 @@ def check_kernels(torch, device, ops, ref, bh, dp):
         fail("diffunpack wrote into a non-contiguous tensor")
     except ValueError:
         pass
-    log(f"[check] blockhash2, diffpack and diffunpack equal their plain "
-        f"versions bit for bit (tolerance 0): max_abs_err {worst}")
+    log(f"[check] blockhash2, diffpack (per leaf and diffpack_many) and "
+        f"diffunpack equal their plain versions bit for bit (tolerance 0): "
+        f"max_abs_err {worst}")
     return worst
 
 
@@ -516,6 +558,11 @@ def bf16_tolerance(torch, x):
 
 #: (B, S, H, dh) of the training path's attention, and a short sequence
 FLASH_SHAPES = ((4, 2048, 32, 64), (4, 256, 32, 64))
+#: (B, S, Sk, H, KV, dh) of the grouped entry: the training path's shape,
+#: dh 128 with H/KV 8 and 1, and Sk != S
+GQA_SHAPES = ((4, 2048, 2048, 32, 4, 64), (2, 1024, 1024, 16, 2, 128),
+              (2, 512, 512, 8, 8, 128), (2, 512, 1536, 8, 1, 64),
+              (2, 1024, 256, 8, 8, 32))
 
 
 def check_flash(torch, device, ops, ref, fa) -> float:
@@ -545,6 +592,28 @@ def check_flash(torch, device, ops, ref, fa) -> float:
                 log(f"[check] flashattn {case}: max_abs_err "
                     f"{float(err.max()):.3g}")
                 del q, k, v, got, want, err
+    # the grouped entry (the training path's): KV heads read in place
+    for b, s, sk, h, kv, dh in GQA_SHAPES:
+        for causal in (True, False):
+            q = torch.randn(b, s, h, dh, generator=gen,
+                            device=device).bfloat16()
+            k, v = (torch.randn(b, sk, kv, dh, generator=gen, device=device)
+                    .bfloat16() for _ in range(2))
+            got = fa.flash_attention_gqa(q, k, v, causal=causal)
+            want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+            again = fa.flash_attention_gqa(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            case = (f"grouped B{b} S{s} Sk{sk} H{h}/KV{kv} dh{dh} "
+                    f"causal={causal} bf16")
+            worst_bf16 = max(worst_bf16, float(err.max()))
+            if not bool((err <= bf16_tolerance(torch, want)).all()):
+                fail(f"flashattn {case}: beyond one bf16 ulp")
+            if not torch.equal(got, again):
+                fail(f"flashattn {case}: two launches differ")
+            log(f"[check] flashattn {case}: max_abs_err "
+                f"{float(err.max()):.3g}, two launches bit-equal")
+            del q, k, v, got, want, again, err
     # the gradient, f32, at the training shape, causal
     b, s, h, dh = FLASH_SHAPES[0]
     q, k, v, w = (torch.randn(b, s, h, dh, generator=gen, device=device)
@@ -559,7 +628,8 @@ def check_flash(torch, device, ops, ref, fa) -> float:
     if gerr > 1e-4:
         fail(f"flash gradient differs from the plain autograd: {gerr:.3g}")
     log(f"[check] flashattn: bf16 within one bf16 ulp (max_abs_err "
-        f"{worst_bf16:.3g}), f32 within 2e-5; gradient (f32, B{b} S{s}) "
+        f"{worst_bf16:.3g}), two launches bit-equal, f32 within 2e-5; "
+        f"gradient (f32, B{b} S{s}) "
         f"within {gerr:.3g} of autograd through the plain version (limit "
         f"1e-4)")
     return worst_bf16
@@ -700,9 +770,14 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     jobs = dirty_jobs(torch, state, ids2, bb)
     n_dirty = sum(len(i) for _, i in jobs)
     moved = sum(pack_bytes(t, i, bb) for t, i in jobs)
+    # as a DIFF store packs them: one launch over all the leaves (the time
+    # includes building the table on the host and its copy to the card)
+    ms = device_ms(torch, lambda: dp.diffpack_many(
+        [t for t, _ in jobs], [i for _, i in jobs], bb))
     jobs = [(t, torch.from_numpy(i).cuda()) for t, i in jobs]
     jobs_b = [(ops.as_u32_blocks(t, bb)[0], i) for t, i in jobs]
-    ms = device_ms(torch, lambda: [dp.diffpack(t, i, bb) for t, i in jobs])
+    per_leaf = device_ms(torch, lambda: [dp.diffpack(t, i, bb)
+                                         for t, i in jobs])
     plain = device_ms(torch, lambda: [ref.diffpack_ref(b, i)
                                       for b, i in jobs_b])
     lib = device_ms(torch, lambda: [torch.index_select(b, 0, i)
@@ -710,7 +785,10 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     b_ms, b_by = bound(moved)
     out["diffpack"] = dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        work=f"{len(jobs)} leaves, {n_dirty} dirty blocks, {moved} B")
+        work=f"{len(jobs)} leaves in one launch, {n_dirty} dirty blocks, "
+        f"{moved} B")
+    log(f"[time] diffpack of the same {n_dirty} blocks one launch per leaf "
+        f"({len(jobs)} launches): {per_leaf:.4f} ms")
 
     # diffunpack: store 4's delta, per leaf, as the restart replays it —
     # the rows diffpack gathers from the leaf, scattered back into it (the
@@ -771,40 +849,58 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
 
 
 def time_flash(torch, device, ref, fa) -> dict:
-    """flashattn at the training path's shape (bf16, causal) beside its
-    bound, its plain version and scaled_dot_product_attention."""
+    """flashattn's grouped entry at the training path's shape (bf16, 32
+    heads over 4 KV heads, causal and not) beside its bound, its plain
+    version and scaled_dot_product_attention on the same grouped inputs
+    (``enable_gqa=True``, or KV repeated to 32 heads where this torch lacks
+    the argument)."""
     import torch.nn.functional as F
 
-    b, s, h, dh = FLASH_SHAPES[0]
+    b, s, sk, h, kv, dh = GQA_SHAPES[0]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    q, k, v = (torch.randn(b * h, s, dh, generator=gen, device=device)
-               .to(torch.bfloat16) for _ in range(3))
-    q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
+    q = torch.randn(b, s, h, dh, generator=gen, device=device).bfloat16()
+    k, v = (torch.randn(b, sk, kv, dh, generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, heads, S, dh)
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        grouped = True
+    except TypeError:                      # a torch without the argument
+        grouped = False
+        kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+    sdpa_kw = {"enable_gqa": True} if grouped else {}
     out = {}
     for causal in (True, False):
-        ms = device_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                         causal=causal))
-        plain = device_ms(torch, lambda: ref.flash_attention_ref(
+        ms = device_ms(torch, lambda: fa.flash_attention_gqa(
+            q, k, v, causal=causal))
+        plain = device_ms(torch, lambda: ref.flash_attention_gqa_ref(
             q, k, v, causal=causal))
         lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal))
+            qt, kt, vt, is_causal=causal, **sdpa_kw))
         # the (query, key) pairs this input needs: the lower triangle with
         # its diagonal when causal; two products of dh MACs each per pair
-        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * sk)
         flops = 4 * dh * pairs
-        moved = 4 * q.numel() * q.element_size()       # q, k, v, o once
+        moved = 2 * q.numel() * q.element_size() + \
+            2 * k.numel() * k.element_size()         # q, k, v read; o written
         times = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
                  "operations": flops / BF16_FLOPS_PER_S * 1e3}
         by = max(times, key=times.get)
         out[causal] = dict(
             ms=ms, plain_ms=plain, bound_ms=times[by], bound_by=by,
-            library_ms=lib, work=f"B{b} S{s} H{h} dh{dh} bf16 "
-            f"causal={causal}: {flops:.4g} FLOPs, {moved} B")
-        log(f"[time] flashattn causal={causal}: {ms:.4f} ms (bound "
+            library_ms=lib, work=f"B{b} S{s} H{h}/KV{kv} dh{dh} bf16 "
+            f"causal={causal}: {flops:.4g} FLOPs, {moved} B; library: "
+            f"scaled_dot_product_attention with "
+            f"{'enable_gqa=True' if grouped else 'KV repeated to H heads'}")
+        log(f"[time] flashattn grouped causal={causal}: {ms:.4f} ms (bound "
             f"{times[by]:.4f} ms by {by}: {flops:.4g} FLOPs at 989 TFLOP/s "
             f"{times['operations']:.4f} ms, {moved} B at 3.35 TB/s "
             f"{times['bytes']:.4f} ms; plain {plain:.4f} ms; "
-            f"scaled_dot_product_attention {lib:.4f} ms)")
+            f"scaled_dot_product_attention "
+            f"({'enable_gqa=True' if grouped else 'KV repeated'}) "
+            f"{lib:.4f} ms)")
+    del q, k, v, qt, kt, vt
     return out[True]
 
 
@@ -822,7 +918,7 @@ def sync(torch, device) -> None:
 
 #: device-time groups of a training step, by kernel name (first match)
 _KERNEL_GROUPS = (
-    ("flash attention kernel", ("flash_fwd_kernel",)),
+    ("flash attention kernel", ("flash_fwd_kernel", "flash_tc_kernel")),
     ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reductions", ("reduce_kernel",)),
@@ -1267,13 +1363,13 @@ def objstore_path(torch, args, device, ops) -> dict:
     sync(torch, device)
     out["launches"] = ops.launch_counts()
     ttrace.disable()
-    want = {"blockhash2": 4 * len(named), "diffpack": 2 * sparse_leaves,
+    want = {"blockhash2": 4 * len(named), "diffpack": 2,
             "diffunpack": 2 * sparse_leaves, "flashattn": 0}
     log(f"[obj] kernel launches over the phase: {out['launches']} (expected "
         f"on the card: {want})")
     if on_card and out["launches"] != want:
-        fail("phase 6 launch counts do not match the leaves hashed, packed "
-             "and unpacked")
+        fail("phase 6 launch counts do not match the leaves hashed and "
+             "unpacked and the DIFF stores packed")
     del state, named
     if on_card:
         torch.cuda.empty_cache()

@@ -4,8 +4,9 @@ Per protected leaf, a 64-bit digest per ``block_bytes`` block is kept from
 the previous checkpoint.  On a CHK_DIFF store the new digests are computed
 on the leaf's device (the blockhash kernel on the card; its plain PyTorch
 version on the CPU), the dirty map is diffed on the host (tiny), dirty
-blocks are compacted on the device by the diffpack kernel and only those
-cross to the host.
+blocks are compacted on the device by the diffpack kernel — one launch and
+one copy to the host for all dirty leaves of a store, by groups of at most
+:data:`MAX_PACK_BYTES` — and only those cross to the host.
 
 No clean-leaf skip.  The JAX package skips hashing a leaf that is the same
 object as at the previous store, which is sound only because jax arrays
@@ -80,6 +81,10 @@ def as_tensor(leaf: Any) -> torch.Tensor:
     return numpy_to_tensor(np.asarray(leaf))
 
 
+#: the most packed rows one group of a DIFF store holds on its device
+MAX_PACK_BYTES = 256 << 20
+
+
 class DiffEngine:
     def __init__(self, block_bytes: int = ops.DEFAULT_BLOCK_BYTES,
                  promote_threshold: float = 0.95):
@@ -134,7 +139,8 @@ class DiffEngine:
     def compute_deltas(self, named: Dict[str, Any]
                        ) -> Tuple[Optional[List[LeafDelta]], DiffStats]:
         """→ (deltas, stats); deltas=None means "promote to FULL".  The
-        packed dirty blocks are host copies, complete when this returns."""
+        packed dirty blocks are host copies, complete when this returns:
+        one pack launch and one D2H per group of :meth:`_pack_dirty`."""
         stats = DiffStats()
         pending: List[Tuple[str, torch.Tensor, np.ndarray, np.ndarray]] = []
         for path, d in self.launch_digests(named).items():
@@ -153,12 +159,11 @@ class DiffEngine:
             return None, stats
 
         deltas = []
+        packed = self._pack_dirty(pending)
         for path, leaf, h_new, dirty in pending:
-            if dirty.shape[0] == 0:
+            payload = packed.get(path)
+            if payload is None:
                 payload = np.zeros((0, self.block_bytes // 4), np.uint32)
-            else:
-                payload = ops.u32_numpy(
-                    ops.pack_dirty(leaf, dirty, self.block_bytes))
             stats.bytes_written += payload.nbytes
             deltas.append(LeafDelta(
                 path=path,
@@ -172,6 +177,42 @@ class DiffEngine:
         for d in deltas:
             self._digests[d.path] = d.digests
         return deltas, stats
+
+
+    def _pack_dirty(self, pending) -> Dict[str, np.ndarray]:
+        """The dirty blocks of every leaf in ``pending`` ((path, leaf,
+        digests, dirty indices), in order) → ``{path: (n_dirty,
+        block_bytes/4) uint32}`` on the host, leaves with no dirty block
+        left out.  The rows go by groups of consecutive leaves on one device
+        holding at most :data:`MAX_PACK_BYTES` of rows (a leaf's rows may
+        straddle two groups), one ``ops.pack_dirty_many`` and one D2H per
+        group: a DIFF just under the promote threshold never holds the
+        whole dirty state on the card at once.  A leaf packed in one group
+        gets a row slice of that group's host array."""
+        cap = max(1, MAX_PACK_BYTES // self.block_bytes)
+        groups: List[List[Tuple[str, torch.Tensor, np.ndarray]]] = []
+        rows, device = 0, None
+        for path, leaf, _h, dirty in pending:
+            start = 0
+            while start < dirty.shape[0]:
+                if not groups or rows == cap or leaf.device != device:
+                    groups.append([])
+                    rows, device = 0, leaf.device
+                take = min(dirty.shape[0] - start, cap - rows)
+                groups[-1].append((path, leaf, dirty[start:start + take]))
+                rows += take
+                start += take
+        pieces: Dict[str, List[np.ndarray]] = {}
+        for group in groups:
+            host = ops.u32_numpy(ops.pack_dirty_many(
+                [leaf for _, leaf, _ in group], [idx for _, _, idx in group],
+                self.block_bytes))
+            row = 0
+            for path, _leaf, idx in group:
+                pieces.setdefault(path, []).append(host[row:row + idx.size])
+                row += idx.size
+        return {path: p[0] if len(p) == 1 else np.concatenate(p)
+                for path, p in pieces.items()}
 
 
 # -------------------------------------------------------------------------- #

@@ -13,10 +13,16 @@
 // each dirty block read once and every output row written once in full,
 // over 3.35 TB/s (about 72 us for the ~1,860 dirty blocks of a sparse
 // update of the tinyllama-1.1b-shaped state, whose 45 norm blocks hold
-// 8 KiB each).
+// 8 KiB each).  Packed one leaf per launch, the 46 small leaves' launches
+// cost more than their bytes, so a DIFF store packs every dirty leaf in
+// one launch (`diffpack_many_launch`) over a table with one entry per
+// output row: (leaf pointer, leaf bytes, block index), built on the host
+// and copied to the card with one H2D.  The per-leaf entry
+// (`diffpack_launch`) stays for `ops.pack_dirty`.
 //
-// Design: one CTA per dirty block (grid-stride beyond the grid cap).  There
-// is no scalar prefetch on Hopper, so each CTA loads its own index, then
+// Design: one CTA per output row (grid-stride beyond the grid cap).  There
+// is no scalar prefetch on Hopper, so each CTA loads its own index (or
+// table entry), then
 // copies the block with 16-byte loads and stores: consecutive threads touch
 // consecutive 16-byte vectors, so every warp moves 512 contiguous bytes per
 // instruction.  The leaf is read in place — no padded copy; the partial last
@@ -56,14 +62,47 @@ __device__ __forceinline__ uint4 load_vec(const uint8_t* p, uint64_t off,
                     load_word(p, off + 12, nbytes, true));
 }
 
+// Row `dst` = block b of the leaf `data` (nbytes long), zero past its end.
+__device__ __forceinline__ void copy_block(const uint8_t* __restrict__ data,
+                                           uint64_t nbytes, uint64_t b,
+                                           uint32_t block_bytes,
+                                           uint32_t* __restrict__ dst) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(data);
+  const bool vec = (addr % 16 == 0) && (block_bytes % 16 == 0);
+  const bool aligned4 = addr % 4 == 0;
+  const uint64_t base = b * block_bytes;
+  if (vec && base + block_bytes <= nbytes) {
+    const uint4* src = reinterpret_cast<const uint4*>(data + base);
+    uint4* dst4 = reinterpret_cast<uint4*>(dst);
+    const uint32_t n_vec = block_bytes / 16;
+#pragma unroll 4
+    for (uint32_t j = threadIdx.x; j < n_vec; j += kThreads) {
+      dst4[j] = __ldg(src + j);
+    }
+  } else if (vec) {
+    // the partial last block: 16-byte loads while the vector lies inside
+    // the leaf, 16-byte zero stores past its end, bytes only for the one
+    // vector that straddles it
+    uint4* dst4 = reinterpret_cast<uint4*>(dst);
+    const uint32_t n_vec = block_bytes / 16;
+#pragma unroll 4
+    for (uint32_t j = threadIdx.x; j < n_vec; j += kThreads) {
+      dst4[j] = load_vec(data, base + 16ull * j, nbytes);
+    }
+  } else {
+    const uint32_t n_words = block_bytes / 4;
+    for (uint32_t i = threadIdx.x; i < n_words; i += kThreads) {
+      const uint64_t off = base + 4ull * i;
+      dst[i] = off < nbytes ? load_word(data, off, nbytes, aligned4) : 0u;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 diffpack_kernel(const uint8_t* __restrict__ data, uint64_t nbytes,
                 uint32_t block_bytes, uint64_t n_blocks,
                 const int32_t* __restrict__ dirty_idx, uint64_t n_dirty,
                 uint32_t* __restrict__ out) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(data);
-  const bool vec = (addr % 16 == 0) && (block_bytes % 16 == 0);
-  const bool aligned4 = addr % 4 == 0;
   for (uint64_t k = blockIdx.x; k < n_dirty; k += gridDim.x) {
     const int32_t b = dirty_idx[k];
     uint32_t* dst = out + k * (block_bytes / 4);
@@ -75,32 +114,27 @@ diffpack_kernel(const uint8_t* __restrict__ data, uint64_t nbytes,
       }
       continue;
     }
-    const uint64_t base = uint64_t(b) * block_bytes;
-    if (vec && base + block_bytes <= nbytes) {
-      const uint4* src = reinterpret_cast<const uint4*>(data + base);
-      uint4* dst4 = reinterpret_cast<uint4*>(dst);
-      const uint32_t n_vec = block_bytes / 16;
-#pragma unroll 4
-      for (uint32_t j = threadIdx.x; j < n_vec; j += kThreads) {
-        dst4[j] = __ldg(src + j);
-      }
-    } else if (vec) {
-      // the partial last block: 16-byte loads while the vector lies inside
-      // the leaf, 16-byte zero stores past its end, bytes only for the one
-      // vector that straddles it
-      uint4* dst4 = reinterpret_cast<uint4*>(dst);
-      const uint32_t n_vec = block_bytes / 16;
-#pragma unroll 4
-      for (uint32_t j = threadIdx.x; j < n_vec; j += kThreads) {
-        dst4[j] = load_vec(data, base + 16ull * j, nbytes);
-      }
-    } else {
-      const uint32_t n_words = block_bytes / 4;
-      for (uint32_t i = threadIdx.x; i < n_words; i += kThreads) {
-        const uint64_t off = base + 4ull * i;
-        dst[i] = off < nbytes ? load_word(data, off, nbytes, aligned4) : 0u;
-      }
-    }
+    copy_block(data, nbytes, uint64_t(b), block_bytes, dst);
+  }
+}
+
+// One entry of the batched pack's table: output row k is block `block` of
+// the leaf at `data`, `nbytes` long.
+struct Row {
+  uint64_t data;
+  uint64_t nbytes;
+  uint32_t block;
+  uint32_t pad;
+};
+static_assert(sizeof(Row) == 24, "the host builds this table in numpy");
+
+__global__ void __launch_bounds__(kThreads)
+diffpack_many_kernel(const Row* __restrict__ table, uint64_t n_rows,
+                     uint32_t block_bytes, uint32_t* __restrict__ out) {
+  for (uint64_t k = blockIdx.x; k < n_rows; k += gridDim.x) {
+    const Row r = table[k];
+    copy_block(reinterpret_cast<const uint8_t*>(r.data), r.nbytes, r.block,
+               block_bytes, out + k * (block_bytes / 4));
   }
 }
 
@@ -123,6 +157,25 @@ extern "C" int diffpack_launch(const void* data, unsigned long long nbytes,
   diffpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), nbytes, block_bytes, n_blocks,
       static_cast<const int32_t*>(dirty_idx), n_dirty,
+      static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: (n_rows,) Row entries on the card (leaf pointer, leaf bytes, block
+// index; every block inside its leaf, which the host checks); out: (n_rows,
+// block_bytes/4) u32, written in full.  Launches on `stream` (the caller
+// makes the stream's device current), allocates nothing; returns
+// cudaGetLastError().
+extern "C" int diffpack_many_launch(const void* table,
+                                    unsigned long long n_rows,
+                                    unsigned int block_bytes, void* out,
+                                    void* stream) {
+  if (n_rows == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned int grid =
+      n_rows < kMaxGrid ? static_cast<unsigned int>(n_rows) : kMaxGrid;
+  diffpack_many_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Row*>(table), n_rows, block_bytes,
       static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

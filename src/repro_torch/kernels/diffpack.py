@@ -17,7 +17,9 @@ the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -68,6 +70,62 @@ def diffpack(x: torch.Tensor, dirty_idx: torch.Tensor, block_bytes: int
                  idx.numel(), out.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "diffpack")
+    LAUNCHES.add()
+    return out
+
+
+#: one entry of diffpack_many's table (``Row`` in ``csrc/diffpack.cu``)
+ROW_DTYPE = np.dtype([("data", "<u8"), ("nbytes", "<u8"), ("block", "<u4"),
+                      ("pad", "<u4")])
+
+_MANY_ARGTYPES = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint,
+                  ctypes.c_void_p, ctypes.c_void_p]
+
+
+def diffpack_many(leaves: Sequence[torch.Tensor],
+                  dirty_idx: Sequence[np.ndarray], block_bytes: int
+                  ) -> torch.Tensor:
+    """CUDA tensors on one card, each with its host dirty block indices →
+    ``(n_rows, block_bytes/4)`` int32 (u32 bits) on that card: the rows of
+    :func:`diffpack` of each leaf, leaf after leaf, from one launch.  The
+    indices must lie in ``[0, n_blocks)`` of their leaf (``ops.
+    pack_dirty_many`` checks them); the table of (leaf pointer, leaf bytes,
+    block) entries is built on the host and crosses in one copy, queued on
+    the current stream.  Launches
+    the kernel on the current stream or raises."""
+    if len(leaves) != len(dirty_idx) or not leaves:
+        raise ValueError(f"diffpack_many takes one index array per leaf, "
+                         f"and at least one leaf: got {len(leaves)} leaves, "
+                         f"{len(dirty_idx)} index arrays")
+    device = leaves[0].device
+    if device.type != "cuda" or any(x.device != device for x in leaves):
+        raise ValueError(f"diffpack_many takes CUDA tensors on one card, got "
+                         f"{sorted({str(x.device) for x in leaves})}")
+    if block_bytes <= 0 or block_bytes % 4:
+        raise ValueError(f"block_bytes must be a positive multiple of 4, "
+                         f"got {block_bytes}")
+    datas = [x.detach().contiguous() for x in leaves]
+    counts = [int(np.asarray(i).size) for i in dirty_idx]
+    table = np.zeros(sum(counts), ROW_DTYPE)
+    row = 0
+    for x, idx, n in zip(datas, dirty_idx, counts):
+        table["data"][row:row + n] = x.data_ptr()
+        table["nbytes"][row:row + n] = x.numel() * x.element_size()
+        table["block"][row:row + n] = np.asarray(idx).reshape(-1)
+        row += n
+    out = torch.empty((row, block_bytes // 4), dtype=torch.int32,
+                      device=device)
+    if row == 0:
+        return out
+    # from pinned memory, so the copy queues on the stream like the launch
+    # (the host allocator keeps the buffer until the copy has run)
+    table_t = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
+        device, non_blocking=True)
+    fn = build.function("diffpack", "diffpack_many_launch", _MANY_ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(table_t.data_ptr(), row, block_bytes, out.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, "diffpack_many")
     LAUNCHES.add()
     return out
 

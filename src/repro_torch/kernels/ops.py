@@ -4,11 +4,13 @@ A CUDA tensor launches the hand-written Hopper kernel (and raises if it
 cannot be built or launched); a CPU tensor takes the plain PyTorch version
 in ``ref.py``.  Nothing falls back from one to the other.
 
-Attention (:func:`flash_attention`, :func:`flash_attention_bshd`) is
-differentiable: a ``torch.autograd.Function`` whose forward is the kernel
-(or, on the CPU, the plain version) and whose backward is the exact
-gradient in plain PyTorch (``ref.flash_attention_vjp_ref``).  The JAX
-package has no backward kernel either: its Pallas kernel is forward only.
+Attention (:func:`flash_attention`, :func:`flash_attention_gqa`,
+:func:`flash_attention_bshd`) is differentiable: a
+``torch.autograd.Function`` whose forward is the kernel (or, on the CPU,
+the plain version) and whose backward is the exact gradient in plain
+PyTorch (``ref.flash_attention_vjp_ref``; the grouped layout repeats K and
+V for it and sums dk, dv over each group).  The JAX package has no
+backward kernel either: its Pallas kernel is forward only.
 
 Digest tables and packed blocks are ``torch.int32`` tensors carrying u32
 bits; :func:`u32_numpy` turns them into the ``np.uint32`` arrays the JAX
@@ -18,7 +20,7 @@ on the host from those small tables, as in the JAX package.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,15 +82,49 @@ def pack_dirty(x: torch.Tensor, dirty_idx: np.ndarray,
     indices are checked against the leaf's block count here, on the host,
     and then moved to the device as int32, as in the JAX package."""
     _check_device(x)
-    idx = np.ascontiguousarray(dirty_idx, dtype=np.int32).reshape(-1)
-    n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
-    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
-        raise IndexError(f"dirty block index outside [0, {n_blocks})")
-    idx_t = torch.from_numpy(idx).to(x.device)
+    idx_t = torch.from_numpy(_pack_indices(x, dirty_idx, block_bytes)
+                             ).to(x.device)
     if x.is_cuda:
         return dp.diffpack(x, idx_t, block_bytes)
     blocks, _ = as_u32_blocks(x, block_bytes)
     return ref.diffpack_ref(blocks, idx_t)
+
+
+def _pack_indices(x: torch.Tensor, dirty_idx: np.ndarray,
+                  block_bytes: int) -> np.ndarray:
+    """The host check of the blocks a pack gathers from ``x`` → the indices
+    as a flat int32 array, each in ``[0, n_blocks)``."""
+    idx = np.ascontiguousarray(dirty_idx, dtype=np.int32).reshape(-1)
+    n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
+    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
+        raise IndexError(f"dirty block index outside [0, {n_blocks})")
+    return idx
+
+
+def pack_dirty_many(leaves: Sequence[torch.Tensor],
+                    dirty_list: Sequence[np.ndarray],
+                    block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
+    """:func:`pack_dirty` of many leaves on one device, concatenated →
+    ``(sum n_dirty, block_bytes/4)`` int32 (u32 bits) on that device.  The
+    indices are checked per leaf as :func:`pack_dirty` checks them; on the
+    card one launch packs every leaf (``diffpack_many``), on the CPU the
+    plain version runs leaf by leaf."""
+    if len(leaves) != len(dirty_list) or not leaves:
+        raise ValueError(f"pack_dirty_many takes one index array per leaf, "
+                         f"and at least one leaf: got {len(leaves)} leaves, "
+                         f"{len(dirty_list)} index arrays")
+    for x in leaves:
+        _check_device(x)
+        if x.device != leaves[0].device:
+            raise ValueError(f"pack_dirty_many takes leaves on one device, "
+                             f"got {x.device} and {leaves[0].device}")
+    idxs = [_pack_indices(x, i, block_bytes)
+            for x, i in zip(leaves, dirty_list)]
+    if leaves[0].is_cuda:
+        return dp.diffpack_many(leaves, idxs, block_bytes)
+    return torch.cat([ref.diffpack_ref(as_u32_blocks(x, block_bytes)[0],
+                                       torch.from_numpy(i))
+                      for x, i in zip(leaves, idxs)])
 
 
 def check_dirty_indices(dirty_idx: np.ndarray, n_blocks: int) -> np.ndarray:
@@ -173,14 +209,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FlashAttention.apply(q, k, v, causal, bq, bk)
 
 
+class _FlashAttentionGQA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk):
+        if q.is_cuda:
+            out = fa.flash_attention_gqa(q, k, v, causal=causal, bq=bq,
+                                         bk=bk)
+        else:
+            _check_device(q)
+            fa.check_shapes_gqa(q, k, v, bq, bk)
+            out = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        b, s, h, dh = q.shape
+        sk, kv = k.shape[1], k.shape[2]
+        rep = h // kv
+        dq, dk, dv = ref.flash_attention_vjp_ref(
+            ref.to_bh(q), ref.to_bh(ref.repeat_kv(k, rep)),
+            ref.to_bh(ref.repeat_kv(v, rep)), ref.to_bh(dout),
+            causal=ctx.causal)
+        dk = ref.from_bh(dk, b).reshape(b, sk, kv, rep, dh).sum(dim=3)
+        dv = ref.from_bh(dv, b).reshape(b, sk, kv, rep, dh).sum(dim=3)
+        return ref.from_bh(dq, b), dk, dv, None, None, None
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, bq: int = fa.DEFAULT_BQ,
+                        bk: int = fa.DEFAULT_BK) -> torch.Tensor:
+    """(B, S, H, dh) q, (B, Sk, KV, dh) k and v → (B, S, H, dh) in q's
+    dtype, with a gradient; query head h reads KV head h // (H/KV).  On the
+    card the kernel reads k and v in place; the plain version repeats
+    them."""
+    return _FlashAttentionGQA.apply(q, k, v, causal, bq, bk)
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, bq: int = fa.DEFAULT_BQ,
                          bk: int = fa.DEFAULT_BK) -> torch.Tensor:
     """(B, S, H, dh) layout of :func:`flash_attention` (KV already repeated
-    to H heads)."""
-    o = flash_attention(fa.to_bh(q), fa.to_bh(k), fa.to_bh(v),
-                        causal=causal, bq=bq, bk=bk)
-    return fa.from_bh(o, q.shape[0])
+    to H heads, the reference's contract): :func:`flash_attention_gqa`
+    with KV = H."""
+    fa.check_shapes_bshd(q, k, v, bq, bk)
+    return flash_attention_gqa(q, k, v, causal=causal, bq=bq, bk=bk)
 
 
 def launch_counts() -> dict:

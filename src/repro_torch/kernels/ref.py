@@ -11,7 +11,9 @@ is split into 16-bit halves so no int64 product overflows.
 
 Attention (:func:`flash_attention_ref`) is the function the flash kernel
 computes, written as one softmax over the whole key axis in f32; its
-exact gradient is :func:`flash_attention_vjp_ref`.
+exact gradient is :func:`flash_attention_vjp_ref`.  The grouped layout's
+plain version (:func:`flash_attention_gqa_ref`) repeats the KV heads and
+calls it.
 """
 from __future__ import annotations
 
@@ -120,6 +122,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q32, k32, v32 = q.float(), k.float(), v.float()
     p, l = _probs(q32, k32, causal, attention_scale(q.shape[-1]))
     return (torch.matmul(p, v32) / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def to_bh(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) → (B·H, S, dh)."""
+    b, s, h, dh = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, dh)
+
+
+def from_bh(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(B·H, S, dh) → (B, S, H, dh)."""
+    bh, s, dh = x.shape
+    return x.reshape(b, bh // b, s, dh).transpose(1, 2)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B,S,KV,dh) → (B,S,KV·n_rep,dh), each KV head repeated n_rep times
+    in place (head h reads KV head h // n_rep)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, dh = k.shape
+    return k[:, :, :, None].expand(b, s, kv, n_rep, dh).reshape(
+        b, s, kv * n_rep, dh)
+
+
+def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True
+                            ) -> torch.Tensor:
+    """(B, S, H, dh) × (B, Sk, KV, dh) × (B, Sk, KV, dh) → (B, S, H, dh) in
+    q's dtype: the KV heads repeated to H, then :func:`flash_attention_ref`
+    per batch·head."""
+    rep = q.shape[2] // k.shape[2]
+    o = flash_attention_ref(to_bh(q), to_bh(repeat_kv(k, rep)),
+                            to_bh(repeat_kv(v, rep)), causal=causal)
+    return from_bh(o, q.shape[0])
 
 
 def flash_attention_vjp_ref(q: torch.Tensor, k: torch.Tensor,

@@ -3,8 +3,9 @@
 The PyTorch counterpart of ``repro.models.attention`` for the train/prefill
 path.  Tensors are (batch, seq, heads, head_dim); scores and softmax are
 f32.  ``REPRO_ATTN_IMPL=flash`` routes GQA without a sliding window through
-the flash kernel (``kernels.ops.flash_attention_bshd``: the Hopper kernel
-on a CUDA tensor, its plain version on the CPU); the default is the
+the flash kernel (``kernels.ops.flash_attention_gqa``, which reads the KV
+heads in place: the Hopper kernel on a CUDA tensor, its plain version on
+the CPU); the default is the
 query-blockwise version below, as in the reference.
 
 The reference's sharding hints are dropped: one device needs none.  MLA
@@ -20,7 +21,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.ops import flash_attention_bshd
+from repro_torch.kernels.ops import flash_attention_gqa
+from repro_torch.kernels.ref import repeat_kv
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Dict[str, Any]
@@ -33,16 +35,6 @@ def _attn_impl() -> str:
     """"blockwise" (default) or "flash" (the fused kernel; set
     REPRO_ATTN_IMPL=flash)."""
     return os.environ.get("REPRO_ATTN_IMPL", "blockwise")
-
-
-def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    """(B,S,KV,dh) → (B,S,KV·n_rep,dh), each KV head repeated n_rep times
-    in place (head h reads KV head h // n_rep)."""
-    if n_rep == 1:
-        return k
-    b, s, kv, dh = k.shape
-    return k[:, :, :, None].expand(b, s, kv, n_rep, dh).reshape(
-        b, s, kv * n_rep, dh)
 
 
 # --------------------------------------------------------------------------- #
@@ -171,13 +163,12 @@ def gqa_attention(
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
 
-    k = repeat_kv(k, h // kv)
-    v = repeat_kv(v, h // kv)
-
     if _attn_impl() == "flash" and cfg.sliding_window is None:
-        out = flash_attention_bshd(q, k, v, causal=causal)
+        # the grouped KV heads are read in place: no repeat, no transposes
+        out = flash_attention_gqa(q, k, v, causal=causal)
     else:
-        out = blockwise_attention(q, k, v, causal=causal,
+        out = blockwise_attention(q, repeat_kv(k, h // kv),
+                                  repeat_kv(v, h // kv), causal=causal,
                                   window=cfg.sliding_window)
     return out.reshape(b, s, h * dh) @ p["wo"]
 

@@ -54,6 +54,38 @@ def test_hopper_kernels_match_plain_versions_on_card():
 
 
 @pytest.mark.gpu
+def test_diffpack_many_matches_per_leaf_diffpack_on_card():
+    """One launch over a table of (leaf, block) rows gives the rows of
+    per-leaf diffpack and of diffpack_ref, bit for bit: every dtype width,
+    an unaligned view, a 0-byte leaf, a leaf with no dirty block, a ragged
+    last block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    f = torch.randn(300_001, generator=g, device="cuda")
+    raw = (f * 1000).to(torch.int64).to(torch.uint8)
+    leaves = [f, f[1:], raw[3:70_000], f[:7].to(torch.bfloat16),
+              (f * 100).to(torch.float16), f.to(torch.float64),
+              torch.zeros(0, device="cuda"), (f * 100).to(torch.int8)]
+    for bb in (256, 65_536):
+        dirty = []
+        for i, x in enumerate(leaves):
+            n = ops.as_u32_blocks(x, bb)[1]
+            dirty.append(np.zeros(0, np.int32) if i == 4 else np.unique(
+                np.array([0, n // 3, n - 1], np.int32)))
+        n0 = dp.LAUNCHES.n
+        got = ops.pack_dirty_many(leaves, dirty, bb)
+        assert dp.LAUNCHES.n == n0 + 1
+        per_leaf = torch.cat([dp.diffpack(x, torch.from_numpy(i).cuda(), bb)
+                              for x, i in zip(leaves, dirty)])
+        plain = torch.cat([ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0],
+                                            torch.from_numpy(i).cuda())
+                           for x, i in zip(leaves, dirty)])
+        assert torch.equal(got, per_leaf) and torch.equal(got, plain)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("base", ["zeros", "random"])
 def test_diffunpack_matches_plain_version_on_card(base):
     """diffunpack against diffunpack_ref on the card, bit for bit: 1, 7 and
@@ -125,7 +157,8 @@ def test_directive_path_on_card_goes_through_the_kernels(tmp_path):
     state["h"][-1] = 3.0
     ctx.store(state, id=2, level=1, kind=CHK_DIFF)
     ctx.shutdown()
-    assert ops.launch_counts() == {"blockhash2": 4, "diffpack": 2,
+    # one pack for the DIFF store's two dirty leaves
+    assert ops.launch_counts() == {"blockhash2": 4, "diffpack": 1,
                                    "diffunpack": 0, "flashattn": 0}
     ctx2 = CheckpointContext(cfg)
     got = ctx2.load({k: torch.zeros_like(v) for k, v in state.items()})
@@ -170,6 +203,42 @@ def test_flash_kernel_matches_plain_version_on_card(dtype, causal):
     r = torch.randn(2, 200, 64, generator=g, device="cuda").to(dtype)
     with pytest.raises(ValueError, match="divide"):
         fa.flash_attention(r, r, r)            # 200 is not a multiple of 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_grouped_kernel_matches_plain_version_on_card(dh):
+    """The tensor-core kernel reading grouped KV heads in place, bf16,
+    against flash_attention_gqa_ref within one bf16 ulp of the output
+    (:func:`bf16_tolerance`): H/KV 1 and 8, Sk ≠ S, S and Sk not multiples
+    of the kernel's tiles, causal and not, and q, k, v as strided views of a
+    fused projection; a second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(dh)
+    cases = [(2, 256, 256, 8, 8), (2, 256, 256, 8, 1), (1, 128, 384, 8, 1),
+             (2, 384, 128, 4, 4), (1, 200, 136, 8, 1)]
+    for b, s, sk, h, kv in cases:
+        for causal in (True, False):
+            q = torch.randn(b, s, h, dh, generator=g, device="cuda").bfloat16()
+            k, v = (torch.randn(b, sk, kv, dh, generator=g, device="cuda")
+                    .bfloat16() for _ in range(2))
+            got = fa._launch_tc(q, k, v, causal)
+            want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == torch.bfloat16
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bf16_tolerance(want)).all()), \
+                (b, s, sk, h, kv, causal, float(err.max()))
+            assert torch.equal(got, fa._launch_tc(q, k, v, causal))
+    # strided views: q, k, v sliced out of one (B, S, H + 2 KV, dh) tensor
+    fused = torch.randn(2, 256, 8 + 2, dh, generator=g,
+                        device="cuda").bfloat16()
+    q, k, v = fused[:, :, :8], fused[:, :, 8:9], fused[:, :, 9:]
+    got = fa.flash_attention_gqa(q, k, v, causal=True)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=True)
+    assert bool(((got.float() - want.float()).abs()
+                 <= bf16_tolerance(want)).all())
 
 
 @pytest.mark.gpu

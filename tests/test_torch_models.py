@@ -150,7 +150,9 @@ def test_flash_shape_contract_raises():
     with pytest.raises(ValueError, match="BH"):
         ops.flash_attention(torch.zeros(2, 64, 64), torch.zeros(3, 64, 64),
                             torch.zeros(3, 64, 64))
-    assert fa.HEAD_DIMS == (16, 32, 64)
+    # bf16 takes dh 128 on the tensor cores; f32 keeps the CUDA-core widths
+    assert fa.HEAD_DIMS == (16, 32, 64, 128)
+    assert fa.F32_HEAD_DIMS == (16, 32, 64)
 
 
 # --------------------------------------------------------------------------- #
