@@ -27,21 +27,22 @@
 // transposed copies.  A CTA owns 128 query rows of one (batch, head): two
 // consumer warpgroups of 64 rows each (240 registers a thread after
 // setmaxnreg) and a producer warpgroup (24), one thread of which loads Q
-// once and keeps a 3-stage ring of K and V tiles (128 keys, 64 at dh 128)
-// full with TMA under mbarriers; rows past S or Sk arrive as zeros (TMA's
-// out-of-bounds fill) and such keys are masked.  S = Q·Kᵀ is wgmma with
-// bf16 operands from shared memory (both K-major as stored, swizzled as
-// TMA wrote them) and an f32 accumulator; the products are exact.  The
-// online softmax runs in f32 on the accumulator fragment (row max and sum
-// across the 4 threads of a row by shuffles; the -1e30 mask and the 1e-30
-// floor of the reference; exponentials as exp2 of the scores scaled by
-// log2(e)/sqrt(dh)).  P·V is wgmma with P from registers (the accumulator
-// fragment of 16 keys is the A operand as it stands) and V from shared
-// memory through the transpose bit.  To keep p's precision, p is split
-// into hi (p truncated to bf16) and lo = bf16(p - hi), and both products
-// are accumulated: p keeps 16 significant bits and the output stays within
-// one bf16 ulp of the f32 plain version (P as bf16 alone misses it: 0.0156
-// at the training shape); l sums the f32 p.  Within a warpgroup, S of tile
+// once and keeps a ring of K and V tiles (2 stages of 128 keys; 3 of 64
+// at dh 128) full with TMA under mbarriers; rows past S or Sk arrive as
+// zeros (TMA's out-of-bounds fill) and such keys are masked.  S = Q·Kᵀ
+// is wgmma with bf16 operands from shared memory (both K-major as
+// stored, swizzled as TMA wrote them) and an f32 accumulator; the
+// products are exact.  The online softmax runs in f32 on the accumulator
+// fragment (row max and sum across the 4 threads of a row by shuffles;
+// the -1e30 mask and the 1e-30 floor of the reference; exponentials as
+// exp2 of the scores scaled by log2(e)/sqrt(dh)).  P·V is wgmma with P
+// from registers (the accumulator fragment of 16 keys is the A operand as
+// it stands) and V from shared memory through the transpose bit.  To keep
+// p's precision, p is split into hi (p truncated to bf16) and
+// lo = bf16(p - hi), and both products are accumulated: p keeps 16
+// significant bits and the output stays within one bf16 ulp of the f32
+// plain version (P as bf16 alone misses it: 0.0156 at the training
+// shape); l sums the f32 p.  Within a warpgroup, S of tile
 // t is issued with P·V of tile t-1, so the softmax of one tile runs while
 // the tensor cores do the previous tile's P·V; between the two warpgroups,
 // named barriers make them take turns issuing their products, so one's
@@ -53,10 +54,10 @@
 // dh).  No atomics, and the tiling and order are fixed: two launches on
 // the same inputs give the same bits.
 //
-// Where it stands (NVIDIA H100 80GB HBM3, `chip_smoke.py` and
-// `flash_variants.py`, numbers in PERF.md): about 4.4x its bound at the
-// training shape.  Without the softmax, the products with the split alone
-// take ~72 % of the kernel's time; without the softmax and P·V, S alone
+// Where it stands (NVIDIA H100 80GB HBM3, `chip_smoke.py` and variants of
+// this source timed in turns, numbers in PERF.md): about 4.4x its bound at
+// the training shape.  Without the softmax, the products with the split
+// alone take ~72 % of the kernel's time; without the softmax and P·V, S alone
 // still takes ~45 % (TMA waits, per-CTA start-up, the split).  A
 // persistent grid, TMA multicast of K/V across a cluster of heads of one
 // KV group, and a TMA store of the output are the next steps.
@@ -262,7 +263,6 @@ namespace tc {
 constexpr int kRowsCta = 128;           // query rows per CTA
 constexpr int kConsumers = 256;         // two warpgroups of 64 rows each
 constexpr int kThreads = kConsumers + 128;  // plus a producer warpgroup
-constexpr int kStages = 3;              // K/V ring depth
 constexpr float kNegInf = -1e30f;
 
 template <int DH>
@@ -273,6 +273,9 @@ struct Cfg {
   static constexpr int kPanels = DH * 2 / kSw;
   static constexpr int kPanelElems = kSw / 2;
   static constexpr int kN = DH == 128 ? 64 : 128;     // keys per tile
+  // K/V ring depth: timed in turns on an H100, 2 stages beat 3 at dh 64
+  // (by ~1 %) and 3 beat 2 at dh 128 (by ~5 %); dh 16 and 32 follow dh 64
+  static constexpr int kStages = DH == 128 ? 3 : 2;
   static constexpr int kQBytes = kRowsCta * DH * 2;
   static constexpr int kKVBytes = kN * DH * 2;        // one K or V tile
   // wgmma layout type of the swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B
@@ -611,6 +614,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 int n_heads, int group, int causal, float scale_log2) {
   using C = Cfg<DH>;
   constexpr int kN = C::kN;
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;                                // Q, 128 rows

@@ -17,9 +17,10 @@ The plain PyTorch versions are ``ref.flash_attention_ref`` and
 :func:`flash_attention` and :func:`flash_attention_bshd` keep the
 reference's signatures and its shape contract: with ``bq = min(bq, S)``
 and ``bk = min(bk, Sk)``, S must divide by bq and Sk by bk; any other
-shape raises rather than being padded.  The kernels are forward only, like
-the reference's: the gradient is ``ops.flash_attention``'s
-``torch.autograd.Function``.
+shape raises rather than being padded.  Both go through
+:func:`flash_attention_gqa`, which alone chooses the kernel.  The kernels
+are forward only, like the reference's: the gradient is
+``ops.flash_attention_gqa``'s ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -172,36 +173,35 @@ def _launch_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bq: int = DEFAULT_BQ,
-                    bk: int = DEFAULT_BK) -> torch.Tensor:
-    """CUDA tensors (BH, S, dh), (BH, Sk, dh) ×2 in f32 or bf16 → (BH, S,
-    dh) in q's dtype.  Launches a kernel on the current stream or raises:
-    bf16 the tensor-core kernel (each batch·head a batch of one head), f32
-    the CUDA-core one.  ``bq``/``bk`` only set the shape contract: the
-    kernels' own tiles cover any S and Sk."""
-    check_shapes(q, k, v, bq, bk)
-    _check_cuda(q)
-    if q.dtype == torch.float32:
-        return _launch_simt(q, k, v, causal)
-    return _launch_tc(q[:, :, None], k[:, :, None], v[:, :, None],
-                      causal)[:, :, 0]
-
-
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, bq: int = DEFAULT_BQ,
                         bk: int = DEFAULT_BK) -> torch.Tensor:
     """CUDA tensors (B, S, H, dh) q and (B, Sk, KV, dh) k, v → (B, S, H, dh)
-    in q's dtype, query head h reading KV head h // (H/KV).  bf16 reads k
-    and v in place; f32 repeats them to H heads for the CUDA-core kernel."""
+    in q's dtype, query head h reading KV head h // (H/KV).  Launches a
+    kernel on the current stream or raises: bf16 the tensor-core kernel,
+    which reads k and v in place; f32 the CUDA-core one, on k and v
+    repeated to H heads.  ``bq``/``bk`` only set the shape contract: the
+    kernels' own tiles cover any S and Sk."""
     check_shapes_gqa(q, k, v, bq, bk)
     _check_cuda(q)
     if q.dtype == torch.bfloat16:
         return _launch_tc(q, k, v, causal)
     rep = q.shape[2] // k.shape[2]
-    o = _launch_simt(to_bh(q), to_bh(k.repeat_interleave(rep, dim=2)),
-                     to_bh(v.repeat_interleave(rep, dim=2)), causal)
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    o = _launch_simt(to_bh(q), to_bh(k), to_bh(v), causal)
     return from_bh(o, q.shape[0]).contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = DEFAULT_BQ,
+                    bk: int = DEFAULT_BK) -> torch.Tensor:
+    """CUDA tensors (BH, S, dh), (BH, Sk, dh) ×2 in f32 or bf16 → (BH, S,
+    dh) in q's dtype (the reference's contract): :func:`flash_attention_gqa`
+    with each batch·head a batch of one head."""
+    check_shapes(q, k, v, bq, bk)
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, bq=bq, bk=bk)[:, :, 0]
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

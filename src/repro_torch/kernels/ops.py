@@ -4,13 +4,14 @@ A CUDA tensor launches the hand-written Hopper kernel (and raises if it
 cannot be built or launched); a CPU tensor takes the plain PyTorch version
 in ``ref.py``.  Nothing falls back from one to the other.
 
-Attention (:func:`flash_attention`, :func:`flash_attention_gqa`,
-:func:`flash_attention_bshd`) is differentiable: a
+Attention is differentiable: :func:`flash_attention_gqa` is a
 ``torch.autograd.Function`` whose forward is the kernel (or, on the CPU,
 the plain version) and whose backward is the exact gradient in plain
-PyTorch (``ref.flash_attention_vjp_ref``; the grouped layout repeats K and
-V for it and sums dk, dv over each group).  The JAX package has no
-backward kernel either: its Pallas kernel is forward only.
+PyTorch (``ref.flash_attention_vjp_ref`` on K and V repeated to the query
+heads, dk and dv summed over each group); :func:`flash_attention` and
+:func:`flash_attention_bshd` check the reference's shape contract and go
+through it.  The JAX package has no backward kernel either: its Pallas
+kernel is forward only.
 
 Digest tables and packed blocks are ``torch.int32`` tensors carrying u32
 bits; :func:`u32_numpy` turns them into the ``np.uint32`` arrays the JAX
@@ -180,35 +181,6 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, bq, bk):
-        if q.is_cuda:
-            out = fa.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
-        else:
-            _check_device(q)
-            fa.check_shapes(q, k, v, bq, bk)
-            out = ref.flash_attention_ref(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = ref.flash_attention_vjp_ref(q, k, v, dout,
-                                                 causal=ctx.causal)
-        return dq, dk, dv, None, None, None
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bq: int = fa.DEFAULT_BQ,
-                    bk: int = fa.DEFAULT_BK) -> torch.Tensor:
-    """(BH, S, dh), (BH, Sk, dh) ×2 → (BH, S, dh) in q's dtype, with a
-    gradient.  The reference's shape contract holds on both devices."""
-    return _FlashAttention.apply(q, k, v, causal, bq, bk)
-
-
 class _FlashAttentionGQA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, bq, bk):
@@ -246,6 +218,17 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card the kernel reads k and v in place; the plain version repeats
     them."""
     return _FlashAttentionGQA.apply(q, k, v, causal, bq, bk)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = fa.DEFAULT_BQ,
+                    bk: int = fa.DEFAULT_BK) -> torch.Tensor:
+    """(BH, S, dh), (BH, Sk, dh) ×2 → (BH, S, dh) in q's dtype, with a
+    gradient: :func:`flash_attention_gqa` with each batch·head a batch of
+    one head.  The reference's shape contract holds on both devices."""
+    fa.check_shapes(q, k, v, bq, bk)
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, bq=bq, bk=bk)[:, :, 0]
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
