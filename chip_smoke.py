@@ -9,13 +9,14 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    with ``nvcc`` for sm_90a, one process per source, all at once.
 2. Kernel vs plain version on the card: ``blockhash2`` against
    ``blockhash2_ref`` (the main path's leaf shapes, ragged lengths, every
-   dtype width, unaligned storage offsets), ``diffpack`` against
-   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block) and
-   ``diffunpack`` against ``diffunpack_ref`` (the same counts into a zeros
-   and a random base, ragged last block, every dtype width, unaligned
-   storage offsets, a 0-byte leaf), bit for bit, and ``diffpack_many``
-   (every pack case in one table) against per-leaf ``diffpack`` and
-   ``diffpack_ref``; ``flashattn`` against ``flash_attention_ref`` at
+   dtype width, unaligned storage offsets), ``diffpack_many`` against
+   ``diffpack_ref`` (1, 7 and ~2,000 dirty blocks, ragged last block; one
+   leaf per launch, and every case in one table) and ``diffunpack_many``
+   against ``diffunpack_ref`` (the same counts into a zeros and a random
+   base, ragged last block, every dtype width, unaligned storage offsets,
+   a 0-byte leaf; one leaf per launch, and every case in one table), bit
+   for bit, and a round trip from ``ops.pack_dirty_many`` through the host
+   to ``ops.unpack_dirty_many``; ``flashattn`` against ``flash_attention_ref`` at
    tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
    not, and at S 256, and its grouped entry against
    ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
@@ -31,10 +32,11 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    FULL's tail ran, DIFF (exact dirty-block count), a dense update
    (promoted FULL), another sparse update and DIFF, shutdown, then a
    restart into a zeros template on the card, which replays the last DIFF
-   there (diffunpack) and must equal the final state bit for bit.  The
-   kernels' launch counts are reset just before and read just after, and
-   must match the leaves hashed and unpacked and the DIFF stores packed
-   (one ``diffpack`` launch per store).
+   there (one ``diffunpack`` launch for every leaf of the link) and must
+   equal the final state bit for bit.  The kernels' launch counts are
+   reset just before and read just after, and must match the leaves hashed,
+   the DIFF stores packed (one ``diffpack`` launch per store) and the DIFF
+   links replayed.
 4. Timing on the card (CUDA events, median of 20 after warm-up) of each
    kernel, its plain version and, where one exists, a PyTorch call
    computing the same function, beside the bound: the larger of bytes over
@@ -230,7 +232,6 @@ def main_path(torch, args, device, ops):
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
-    sparse_leaves = 2 + len(norms_of(state)) + 1
     reports = []
     blocked = {}
 
@@ -310,9 +311,10 @@ def main_path(torch, args, device, ops):
         f"in {restore_s:.2f} s (FULL 3 + DIFF 4, the DIFF replayed on "
         f"{device}) (restarted={ctx2.restarted})")
 
-    # one pack launch per DIFF store (stores 2 and 4)
+    # one pack launch per DIFF store (stores 2 and 4), one unpack launch
+    # for the DIFF link the restore replays (store 4)
     want_launch = {"blockhash2": 4 * len(named), "diffpack": 2,
-                   "diffunpack": sparse_leaves, "flashattn": 0}
+                   "diffunpack": 1, "flashattn": 0}
     log(f"[main] kernel launches: stores {store_launches}, stores and "
         f"restore {launches} (expected on the card: {want_launch})")
     if device.type == "cuda" and launches != want_launch:
@@ -370,6 +372,7 @@ def u32_max_abs_diff(torch, a, b) -> int:
 
 
 def check_kernels(torch, device, ops, ref, bh, dp):
+    from repro_torch.kernels import build
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     worst = {"blockhash2": 0, "diffpack": 0, "diffunpack": 0}
 
@@ -409,9 +412,9 @@ def check_kernels(torch, device, ops, ref, bh, dp):
     hash_case("block_bytes 256", f[:10_001], bb=256)
 
     def pack_case(name, x, idx, bb=BLOCK_BYTES):
-        idx = torch.from_numpy(idx).to(device)
-        got = dp.diffpack(x, idx, bb)
-        want = ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0], idx)
+        got = dp.diffpack_many([x], [idx], bb)
+        want = ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0],
+                                torch.from_numpy(idx).to(device))
         torch.cuda.synchronize()
         err = u32_max_abs_diff(torch, got, want)
         worst["diffpack"] = max(worst["diffpack"], err)
@@ -435,23 +438,24 @@ def check_kernels(torch, device, ops, ref, bh, dp):
 
     def pack_many_case(name, cases, bb=BLOCK_BYTES):
         """diffpack_many over every (leaf, indices) of ``cases`` in one
-        launch, against per-leaf diffpack and diffpack_ref."""
+        launch, against one launch per leaf and diffpack_ref."""
         n0 = dp.LAUNCHES.n
         got = dp.diffpack_many([x for x, _ in cases], [i for _, i in cases],
                                bb)
         if dp.LAUNCHES.n != n0 + 1:
             fail(f"diffpack_many {name}: not one launch")
-        rows = [(torch.from_numpy(i).to(device), x) for x, i in cases]
-        per_leaf = torch.cat([dp.diffpack(x, i, bb) for i, x in rows])
-        plain = torch.cat([ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0], i)
-                           for i, x in rows])
+        per_leaf = torch.cat([dp.diffpack_many([x], [i], bb)
+                              for x, i in cases])
+        plain = torch.cat([ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0],
+                                            torch.from_numpy(i).to(device))
+                           for x, i in cases])
         torch.cuda.synchronize()
         err = max(u32_max_abs_diff(torch, got, per_leaf),
                   u32_max_abs_diff(torch, got, plain))
         worst["diffpack"] = max(worst["diffpack"], err)
         if err:
-            fail(f"diffpack_many {name}: differs from per-leaf diffpack or "
-                 f"diffpack_ref")
+            fail(f"diffpack_many {name}: differs from one launch per leaf "
+                 f"or diffpack_ref")
 
     many = []
     for k in (1, 7, 2000):
@@ -468,82 +472,117 @@ def check_kernels(torch, device, ops, ref, bh, dp):
     pack_many_case("block_bytes 256", [
         (f[:10_001], np.arange(0, 157, 3, dtype=np.int32)),
         (raw[3:1003], np.array([3, 0], np.int32))], 256)
-    def unpack_case(name, x, idx, rows=None, bb=BLOCK_BYTES):
-        """Scatter ``rows`` (default: random u32 words) into ``x`` at
-        ``idx`` with the kernel, in place; the plain version scatters into
-        the padded block copy of the same base; the leaf's bytes must be
-        the first bytes of that result."""
-        nbytes = x.numel() * x.element_size()
-        idx_t = torch.from_numpy(idx).to(device)
-        if rows is None:
-            rows = rand_u32(len(idx), bb // 4)
-        base = ops.as_u32_blocks(x, bb)[0]
-        want = ref.diffunpack_ref(base, rows, idx_t)
-        got = dp.diffunpack(x, rows, idx_t, bb)
-        torch.cuda.synchronize()
-        if got is not x:
-            fail(f"diffunpack {name}: did not return its target")
-        want_leaf = want.reshape(-1).view(torch.uint8)[:nbytes]
-        got_u32 = ops.as_u32_blocks(x, bb)[0]
-        want_u32 = torch.zeros_like(got_u32).reshape(-1).view(torch.uint8)
-        want_u32[:nbytes] = want_leaf
-        err = u32_max_abs_diff(torch, got_u32,
-                               want_u32.view(torch.int32).reshape(
-                                   got_u32.shape))
-        worst["diffunpack"] = max(worst["diffunpack"], err)
-        if err:
-            fail(f"diffunpack {name}: differs from diffunpack_ref")
 
+    def unpack_check(name, cases, bb=BLOCK_BYTES):
+        """Scatter the rows of every case (leaf, indices, rows) into its
+        leaf, in place, with one launch; the plain version scatters into
+        the padded block copy of the same base; each leaf's bytes must be
+        the first bytes of that result."""
+        wants = []
+        for x, idx, rows in cases:
+            nbytes = x.numel() * x.element_size()
+            want = ref.diffunpack_ref(ops.as_u32_blocks(x, bb)[0], rows,
+                                      torch.from_numpy(idx).to(device))
+            wants.append(want.reshape(-1).view(torch.uint8)[:nbytes])
+        n0 = dp.UNPACK_LAUNCHES.n
+        dp.diffunpack_many([x for x, _, _ in cases], [i for _, i, _ in cases],
+                           torch.cat([r for _, _, r in cases]), bb)
+        if dp.UNPACK_LAUNCHES.n != n0 + 1:
+            fail(f"diffunpack_many {name}: not one launch")
+        torch.cuda.synchronize()
+        for (x, _, _), want_leaf in zip(cases, wants):
+            nbytes = x.numel() * x.element_size()
+            got_u32 = ops.as_u32_blocks(x, bb)[0]
+            want_u32 = torch.zeros_like(got_u32).reshape(-1).view(torch.uint8)
+            want_u32[:nbytes] = want_leaf
+            err = u32_max_abs_diff(torch, got_u32,
+                                   want_u32.view(torch.int32).reshape(
+                                       got_u32.shape))
+            worst["diffunpack"] = max(worst["diffunpack"], err)
+            if err:
+                fail(f"diffunpack_many {name}: differs from diffunpack_ref")
+
+    # every unpack case: (name, a function making its leaf afresh, indices,
+    # rows); the leaves of the views keep their storage offsets
+    emb_words = rand_u32(32_000, 2048)
+    ucases = []
     for k in (1, 7, 2000):
         idx = np.sort(rng.choice(nb, size=k, replace=False)).astype(np.int32)
         idx[-1] = nb - 1
-        unpack_case(f"{k} dirty of {nb} into zeros",
-                    torch.zeros(32_000, 2048, device=device), idx)
-        unpack_case(f"{k} dirty of {nb} into random words", rand_u32(
-            32_000, 2048), idx)
-    rag = f[:100_003].clone()                      # 7 blocks, the last ragged
-    unpack_case("ragged last block", rag, np.array([0, 3, 6], np.int32))
+        ucases.append((f"{k} dirty of {nb} into zeros",
+                       lambda: torch.zeros(32_000, 2048, device=device), idx))
+        ucases.append((f"{k} dirty of {nb} into random words",
+                       emb_words.clone, idx))
+    ucases.append(("ragged last block", f[:100_003].clone,
+                   np.array([0, 3, 6], np.int32)))
     for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
                torch.float64, torch.uint8, torch.int8):
-        x = (f * 100).to(dt) if dt.is_floating_point else \
-            (f * 1000).to(torch.int64).to(dt)
-        nbl = n_blocks(x, BLOCK_BYTES)
-        unpack_case(f"{dt}", x, np.arange(0, nbl, 2, dtype=np.int32))
-        unpack_case(f"{dt}, last block", x, np.array([nbl - 1], np.int32))
-    buf = raw.clone()
-    unpack_case("offset 3 bytes", buf[3:3 + BLOCK_BYTES + 17],
-                np.array([0, 1], np.int32))
-    unpack_case("offset 4 bytes (f32, +1 element)", f.clone()[1:],
-                np.array([0, 1, 6], np.int32))
-    unpack_case("0-byte leaf", torch.zeros(0, device=device),
-                np.array([0], np.int32))
-    unpack_case("block_bytes 256", f[:10_001].clone(),
-                np.arange(0, 157, 3, dtype=np.int32), bb=256)
-    # the rows diffpack gathers from a leaf, scattered into a zeros leaf of
-    # the same shape, rebuild those blocks exactly
-    src = rand_u32(32_000, 2048)
-    idx = np.arange(0, nb, 5, dtype=np.int32)
-    dst = torch.zeros_like(src)
-    dp.diffunpack(dst, dp.diffpack(src, torch.from_numpy(idx).to(device),
-                                   BLOCK_BYTES),
-                  torch.from_numpy(idx).to(device), BLOCK_BYTES)
-    rows_per_block = BLOCK_BYTES // (2048 * 4)
-    sel = torch.from_numpy(np.concatenate(
-        [np.arange(i * rows_per_block, (i + 1) * rows_per_block)
-         for i in idx])).to(device)
-    if not torch.equal(dst[sel], src[sel]) or \
-            int(dst.count_nonzero()) != int(src[sel].count_nonzero()):
-        fail("diffunpack of diffpack's rows does not rebuild the blocks")
+        def make(dt=dt):
+            return (f * 100).to(dt) if dt.is_floating_point else \
+                (f * 1000).to(torch.int64).to(dt)
+        nbl = n_blocks(make(), BLOCK_BYTES)
+        ucases.append((f"{dt}", make, np.arange(0, nbl, 2, dtype=np.int32)))
+        ucases.append((f"{dt}, last block", make,
+                       np.array([nbl - 1], np.int32)))
+    ucases += [
+        ("offset 3 bytes", lambda: raw.clone()[3:3 + BLOCK_BYTES + 17],
+         np.array([0, 1], np.int32)),
+        ("offset 4 bytes (f32, +1 element)", lambda: f.clone()[1:],
+         np.array([0, 1, 6], np.int32)),
+        ("0-byte leaf", lambda: torch.zeros(0, device=device),
+         np.array([0], np.int32))]
+    ucases = [(name, make, idx, rand_u32(len(idx), BLOCK_BYTES // 4))
+              for name, make, idx in ucases]
+    for name, make, idx, rows in ucases:
+        unpack_check(name, [(make(), idx, rows)])
+    unpack_check("every case above in one table",
+                 [(make(), idx, rows) for _, make, idx, rows in ucases])
+    small = [(f[:10_001].clone, np.arange(0, 157, 3, dtype=np.int32)),
+             (lambda: raw.clone()[3:1003], np.array([0, 3], np.int32))]
+    small = [(make, i, rand_u32(len(i), 64)) for make, i in small]
+    for design in unpack_designs(build):
+        dp.UNPACK_SOURCE = design
+        if design != "diffunpack":
+            unpack_check(f"{design}: every case above in one table",
+                         [(make(), idx, rows)
+                          for _, make, idx, rows in ucases])
+        unpack_check(f"{design}: block_bytes 256, an unaligned view beside "
+                     f"an aligned leaf",
+                     [(make(), i, rows) for make, i, rows in small], bb=256)
+    dp.UNPACK_SOURCE = "diffunpack"
+    # a round trip through the two batched entries: the rows
+    # pack_dirty_many gathers from several leaves, shipped to the host as a
+    # DIFF store ships them, then scattered by unpack_dirty_many into zeros
+    # leaves of the same shapes, rebuild those blocks and nothing else
+    srcs = [rand_u32(32_000, 2048), f[:100_003], raw[3:3 + BLOCK_BYTES + 17],
+            (f * 100).to(torch.bfloat16)]
+    idxs = [np.arange(0, nb, 5, dtype=np.int32), np.array([0, 3, 6]),
+            np.array([1]), np.arange(n_blocks(srcs[3], BLOCK_BYTES))]
+    host = ops.u32_numpy(ops.pack_dirty_many(srcs, idxs, BLOCK_BYTES))
+    cut = np.cumsum([0] + [len(i) for i in idxs])
+    dsts = [torch.zeros_like(srcs[0]), torch.zeros_like(srcs[1]),
+            torch.zeros_like(raw)[3:3 + BLOCK_BYTES + 17],
+            torch.zeros_like(srcs[3])]
+    ops.unpack_dirty_many(dsts, idxs, [host[a:b] for a, b in
+                                       zip(cut[:-1], cut[1:])], BLOCK_BYTES)
+    torch.cuda.synchronize()
+    for src, dst, idx in zip(srcs, dsts, idxs):
+        want = torch.zeros_like(ops.as_u32_blocks(src, BLOCK_BYTES)[0])
+        sel = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+        want[sel] = ops.as_u32_blocks(src, BLOCK_BYTES)[0][sel]
+        if not torch.equal(ops.as_u32_blocks(dst, BLOCK_BYTES)[0], want):
+            fail("unpack_dirty_many of pack_dirty_many's rows does not "
+                 "rebuild the blocks")
     try:
-        dp.diffunpack(torch.zeros(64, 64, device=device).t(),
-                      rand_u32(1, BLOCK_BYTES // 4),
-                      torch.zeros(1, dtype=torch.int32, device=device),
-                      BLOCK_BYTES)
-        fail("diffunpack wrote into a non-contiguous tensor")
+        dp.diffunpack_many([torch.zeros(64, 64, device=device).t()],
+                           [np.zeros(1, np.int32)],
+                           rand_u32(1, BLOCK_BYTES // 4), BLOCK_BYTES)
+        fail("diffunpack_many wrote into a non-contiguous tensor")
     except ValueError:
         pass
-    log(f"[check] blockhash2, diffpack (per leaf and diffpack_many) and "
-        f"diffunpack equal their plain versions bit for bit (tolerance 0): "
+    log(f"[check] blockhash2, diffpack_many and diffunpack_many (one leaf "
+        f"and many per launch) equal their plain versions bit for bit "
+        f"(tolerance 0): "
         f"max_abs_err {worst}")
     return worst
 
@@ -701,9 +740,16 @@ def pack_bytes(t, idx, block_bytes: int) -> int:
 def unpack_bytes(t, idx, block_bytes: int) -> int:
     """Bytes diffunpack must move for dirty blocks ``idx`` of leaf ``t``:
     of each packed row only the part below the leaf's end is read, the
-    leaf's own bytes in each block are written once, the indices read
-    once."""
-    return 2 * leaf_bytes_in(t, idx, block_bytes) + 4 * len(idx)
+    leaf's own bytes in each block are written once, and each row's
+    24-byte table entry is read once."""
+    return 2 * leaf_bytes_in(t, idx, block_bytes) + 24 * len(idx)
+
+
+def unpack_designs(build) -> list:
+    """The sources of diffunpack's designs in the checkout: the kernel,
+    and the vector-only design beside it while both are compared."""
+    return [d for d in ("diffunpack", "diffunpack_vector")
+            if (build.CSRC / f"{d}.cu").exists()]
 
 
 def dirty_jobs(torch, state, ids, block_bytes: int):
@@ -743,6 +789,7 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     from repro_torch.core.protect import flatten_named
+    from repro_torch.kernels import build
     import numpy as np
 
     bb = BLOCK_BYTES
@@ -774,10 +821,10 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     # includes building the table on the host and its copy to the card)
     ms = device_ms(torch, lambda: dp.diffpack_many(
         [t for t, _ in jobs], [i for _, i in jobs], bb))
-    jobs = [(t, torch.from_numpy(i).cuda()) for t, i in jobs]
-    jobs_b = [(ops.as_u32_blocks(t, bb)[0], i) for t, i in jobs]
-    per_leaf = device_ms(torch, lambda: [dp.diffpack(t, i, bb)
+    per_leaf = device_ms(torch, lambda: [dp.diffpack_many([t], [i], bb)
                                          for t, i in jobs])
+    jobs_b = [(ops.as_u32_blocks(t, bb)[0], torch.from_numpy(i).cuda())
+              for t, i in jobs]
     plain = device_ms(torch, lambda: [ref.diffpack_ref(b, i)
                                       for b, i in jobs_b])
     lib = device_ms(torch, lambda: [torch.index_select(b, 0, i)
@@ -790,18 +837,29 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     log(f"[time] diffpack of the same {n_dirty} blocks one launch per leaf "
         f"({len(jobs)} launches): {per_leaf:.4f} ms")
 
-    # diffunpack: store 4's delta, per leaf, as the restart replays it —
-    # the rows diffpack gathers from the leaf, scattered back into it (the
-    # same bytes, so the state stays as it is)
+    # diffunpack: store 4's delta as the restart replays it, every leaf in
+    # one launch (the time includes building the table on the host and its
+    # copy to the card) — the rows diffpack_many gathers from the leaves,
+    # scattered back into them (the same bytes, so the state stays as it
+    # is), on the card as after the link's one H2D
     ujobs = dirty_jobs(torch, state, ids4, bb)
-    u_dirty = sum(len(i) for _, i in ujobs)
+    uleaves, uidx = [t for t, _ in ujobs], [i for _, i in ujobs]
+    u_dirty = sum(len(i) for i in uidx)
     u_moved = sum(unpack_bytes(t, i, bb) for t, i in ujobs)
-    ujobs = [(t, torch.from_numpy(i).cuda()) for t, i in ujobs]
-    ujobs = [(t, i, dp.diffpack(t, i, bb)) for t, i in ujobs]
-    ujobs_b = [(ops.as_u32_blocks(t, bb)[0], i, r, i.to(torch.int64))
-               for t, i, r in ujobs]
-    ms = device_ms(torch, lambda: [dp.diffunpack(t, r, i, bb)
-                                   for t, i, r in ujobs])
+    urows = dp.diffpack_many(uleaves, uidx, bb)
+    cut = np.cumsum([0] + [len(i) for i in uidx])
+    rows_of = [urows[a:b] for a, b in zip(cut[:-1], cut[1:])]
+
+    def unpack_all():
+        dp.diffunpack_many(uleaves, uidx, urows, bb)
+
+    ms = device_ms(torch, unpack_all)
+    per_leaf = device_ms(torch, lambda: [
+        dp.diffunpack_many([t], [i], r, bb)
+        for t, i, r in zip(uleaves, uidx, rows_of)])
+    ujobs_b = [(ops.as_u32_blocks(t, bb)[0], torch.from_numpy(i).cuda(), r)
+               for t, i, r in zip(uleaves, uidx, rows_of)]
+    ujobs_b = [(b, i, r, i.to(torch.int64)) for b, i, r in ujobs_b]
     plain = device_ms(torch, lambda: [ref.diffunpack_ref(b, r, i)
                                       for b, i, r, _ in ujobs_b])
     lib = device_ms(torch, lambda: [b.index_copy_(0, i64, r)
@@ -809,31 +867,47 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     b_ms, b_by = bound(u_moved)
     out["diffunpack"] = dict(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        work=f"{len(ujobs)} leaves, {u_dirty} dirty blocks, {u_moved} B")
-    t, i, r = ujobs[0]
+        work=f"{len(uleaves)} leaves in one launch, {u_dirty} dirty blocks, "
+        f"{u_moved} B")
+    log(f"[time] diffunpack of the same {u_dirty} blocks one launch per leaf "
+        f"({len(uleaves)} launches of the same entry): {per_leaf:.4f} ms")
+    designs = unpack_designs(build)
+    if len(designs) > 1:
+        # both designs of the kernel, in turns, on the same delta
+        by = {d: [] for d in designs}
+        for d in designs + designs[::-1]:
+            dp.UNPACK_SOURCE = d
+            by[d].append(device_ms(torch, unpack_all))
+        dp.UNPACK_SOURCE = designs[0]
+        log("[time] diffunpack designs, store 4's delta in one launch, in "
+            "turns (ms): " + "; ".join(
+                f"{d} " + ", ".join(f"{x:.4f}" for x in v)
+                for d, v in by.items()))
+    t, i, r = uleaves[0], uidx[0], rows_of[0]
     b, _, _, i64 = ujobs_b[0]
-    u = device_ms(torch, lambda: dp.diffunpack(t, r, i, bb))
-    u_plain = device_ms(torch, lambda: ref.diffunpack_ref(b, r, i))
+    u = device_ms(torch, lambda: dp.diffunpack_many([t], [i], r, bb))
+    u_plain = device_ms(torch, lambda: ref.diffunpack_ref(b, r, i64))
     u_lib = device_ms(torch, lambda: b.index_copy_(0, i64, r))
-    u_b, _ = bound(unpack_bytes(t, i.cpu().numpy(), bb))
-    log(f"[time] params/embed alone: diffunpack of {i.numel()} dirty blocks "
+    u_b, _ = bound(unpack_bytes(t, i, bb))
+    log(f"[time] params/embed alone: diffunpack of {len(i)} dirty blocks "
         f"{u:.4f} ms (bound {u_b:.3g} ms by bytes; plain {u_plain:.4f} ms; "
         f"index_copy_ {u_lib:.4f} ms)")
-    del ujobs, ujobs_b
+    del ujobs, ujobs_b, urows, rows_of
 
     # where the time goes: one leaf alone, one launch each, against the
     # whole state's 202 (hash) and 48 (pack) launches above — the largest
     # leaf, and a norm vector (8 KiB: one partial block)
-    for name, (t, idx), b in (("params/embed", jobs[0], jobs_b[0][0]),
-                              ("a norm vector", jobs[2], jobs_b[2][0])):
+    for name, (t, idx_np), (b, idx) in (
+            ("params/embed", jobs[0], jobs_b[0]),
+            ("a norm vector", jobs[2], jobs_b[2])):
         nbl = n_blocks(t, bb)
         h = device_ms(torch, lambda: bh.blockhash2(t, bb))
         h_plain = device_ms(torch, lambda: ref.blockhash2_ref(b))
         h_b, h_by = hash_bound([t])
-        pk = device_ms(torch, lambda: dp.diffpack(t, idx, bb))
+        pk = device_ms(torch, lambda: dp.diffpack_many([t], [idx_np], bb))
         pk_plain = device_ms(torch, lambda: ref.diffpack_ref(b, idx))
         pk_lib = device_ms(torch, lambda: torch.index_select(b, 0, idx))
-        pk_b, _ = bound(pack_bytes(t, idx.cpu().numpy(), bb))
+        pk_b, _ = bound(pack_bytes(t, idx_np, bb))
         log(f"[time] {name} alone ({nbl} blocks, "
             f"{t.numel() * t.element_size()} B): blockhash2 {h:.4f} ms "
             f"(bound {h_b:.3g} ms by {h_by}; plain {h_plain:.4f} ms); "
@@ -1204,7 +1278,6 @@ def objstore_path(torch, args, device, ops) -> dict:
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
-    sparse_leaves = 2 + len(norms_of(state)) + 1
     log(f"[obj] state: {args.layers} of 22 layers, {len(named)} "
         f"leaves, {nbytes / 1e9:.2f} GB on {device}")
 
@@ -1364,7 +1437,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     out["launches"] = ops.launch_counts()
     ttrace.disable()
     want = {"blockhash2": 4 * len(named), "diffpack": 2,
-            "diffunpack": 2 * sparse_leaves, "flashattn": 0}
+            "diffunpack": 2, "flashattn": 0}
     log(f"[obj] kernel launches over the phase: {out['launches']} (expected "
         f"on the card: {want})")
     if on_card and out["launches"] != want:
@@ -1420,7 +1493,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.time()
-    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
+    sources = ["blockhash2", "diffpack", "flashattn"] + unpack_designs(build)
     logs = build.compile_all(sources)
     log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
         f"{time.time() - t:.1f} s")

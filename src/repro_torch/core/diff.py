@@ -28,17 +28,19 @@ below a ~95 % dirty ratio (Fig. 7).  When the observed ratio exceeds
 
 Restore: FULL base + ordered DIFF deltas are replayed into flat uint32
 buffers on the host with numpy, then bit-cast back to the leaf dtype/shape
-(as in the JAX package).  When the restart template's leaf is a tensor,
-the restore instead places the decoded base on the template's device once
-and scatters each delta's dirty blocks into it in place
-(:class:`TensorReplay`: the diffunpack kernel on the card, its plain
-version on the CPU) — the same bytes, without copying the whole leaf to
-the device once per delta.
+(as in the JAX package).  The leaves whose restart template is a tensor
+are instead replayed on the template's device (:class:`ChainReplay`):
+each decoded base is placed there once, then each DIFF link's dirty
+blocks are scattered into every leaf it touches in place, with one
+``ops.unpack_dirty_many`` per device and group of at most
+:data:`MAX_PACK_BYTES` of rows (the diffunpack kernel on the card, its
+plain version on the CPU) — the same bytes, without copying the whole
+leaf to the device once per delta.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,8 +83,32 @@ def as_tensor(leaf: Any) -> torch.Tensor:
     return numpy_to_tensor(np.asarray(leaf))
 
 
-#: the most packed rows one group of a DIFF store holds on its device
+#: the most packed rows one group of a DIFF store or of a replayed DIFF
+#: link holds on its device
 MAX_PACK_BYTES = 256 << 20
+
+
+def row_groups(items: Sequence[Tuple[Any, int]], cap: int
+               ) -> List[List[Tuple[int, int, int]]]:
+    """The rows of ``items`` ((device, row count) per leaf, in order) cut
+    into groups on one device of at most ``cap`` rows each, device after
+    device in order of first appearance, leaves in order within each (a
+    leaf's rows may straddle two groups) → per group, (item index, first
+    row, end row) per piece.  A leaf with no row is in no group."""
+    groups: List[List[Tuple[int, int, int]]] = []
+    for device in dict.fromkeys(d for d, _ in items):
+        rows = cap
+        for i, (d, n) in enumerate(items):
+            start = 0
+            while d == device and start < n:
+                if rows == cap:
+                    groups.append([])
+                    rows = 0
+                take = min(n - start, cap - rows)
+                groups[-1].append((i, start, start + take))
+                rows += take
+                start += take
+    return groups
 
 
 class DiffEngine:
@@ -183,34 +209,24 @@ class DiffEngine:
         """The dirty blocks of every leaf in ``pending`` ((path, leaf,
         digests, dirty indices), in order) → ``{path: (n_dirty,
         block_bytes/4) uint32}`` on the host, leaves with no dirty block
-        left out.  The rows go by groups of consecutive leaves on one device
-        holding at most :data:`MAX_PACK_BYTES` of rows (a leaf's rows may
-        straddle two groups), one ``ops.pack_dirty_many`` and one D2H per
+        left out.  The rows go by :func:`row_groups` of at most
+        :data:`MAX_PACK_BYTES`, one ``ops.pack_dirty_many`` and one D2H per
         group: a DIFF just under the promote threshold never holds the
         whole dirty state on the card at once.  A leaf packed in one group
         gets a row slice of that group's host array."""
         cap = max(1, MAX_PACK_BYTES // self.block_bytes)
-        groups: List[List[Tuple[str, torch.Tensor, np.ndarray]]] = []
-        rows, device = 0, None
-        for path, leaf, _h, dirty in pending:
-            start = 0
-            while start < dirty.shape[0]:
-                if not groups or rows == cap or leaf.device != device:
-                    groups.append([])
-                    rows, device = 0, leaf.device
-                take = min(dirty.shape[0] - start, cap - rows)
-                groups[-1].append((path, leaf, dirty[start:start + take]))
-                rows += take
-                start += take
+        groups = row_groups([(leaf.device, dirty.shape[0])
+                             for _, leaf, _, dirty in pending], cap)
         pieces: Dict[str, List[np.ndarray]] = {}
         for group in groups:
             host = ops.u32_numpy(ops.pack_dirty_many(
-                [leaf for _, leaf, _ in group], [idx for _, _, idx in group],
-                self.block_bytes))
+                [pending[i][1] for i, _, _ in group],
+                [pending[i][3][a:b] for i, a, b in group], self.block_bytes))
             row = 0
-            for path, _leaf, idx in group:
-                pieces.setdefault(path, []).append(host[row:row + idx.size])
-                row += idx.size
+            for i, a, b in group:
+                pieces.setdefault(pending[i][0], []).append(
+                    host[row:row + b - a])
+                row += b - a
         return {path: p[0] if len(p) == 1 else np.concatenate(p)
                 for path, p in pieces.items()}
 
@@ -247,34 +263,21 @@ def apply_delta(buf: np.ndarray, dirty_idx: np.ndarray, payload: np.ndarray,
     return blocks.reshape(-1)
 
 
-class TensorReplay:
-    """One leaf's DIFF chain replayed onto a device: planned on the host by
-    :meth:`add` and :meth:`finish`, run by :meth:`run`.
-
-    It gives the numpy replay's bytes.  That replay scatters whole rows
-    into the base's zero-padded u32 buffer and keeps the first bytes, as
-    many as the last delta's dtype and shape need.  Here the leaf is made
-    once on the device at that final size, from the base's bytes (zeros
-    past the base's end), and each delta's rows are scattered into it in
-    place by ``ops.unpack_dirty`` — the diffunpack kernel on the card, its
-    plain version on the CPU — which writes only bytes below the leaf's
-    end, the only bytes the numpy replay keeps.  :meth:`add` and
-    :meth:`finish` raise, on the host, where the numpy replay would raise
-    on the same data, so :meth:`run` can fail only on the device."""
+class _LeafReplay:
+    """One leaf's part of a :class:`ChainReplay`: its FULL base and its
+    deltas, each with the position of its link in the chain."""
 
     def __init__(self, base: np.ndarray, block_bytes: int):
         self.base = np.ascontiguousarray(base)
         # the numpy replay's buffer: the base padded to whole blocks
         self.padded = n_blocks_of(self.base.nbytes, block_bytes) * block_bytes
-        self.deltas: List[Tuple[np.ndarray, np.ndarray, int]] = []
+        self.deltas: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
         self.dtype: Optional[str] = None
         self.shape: List[int] = []
         self.nbytes = 0
 
-    def add(self, dirty_idx: np.ndarray, payload: np.ndarray,
+    def add(self, link: int, dirty_idx: np.ndarray, payload: np.ndarray,
             block_bytes: int, dtype: str, shape: List[int]) -> None:
-        """A delta of the chain, in order; the leaf takes its dtype and
-        shape."""
         if self.padded % block_bytes:
             raise ValueError(f"block_bytes {block_bytes} does not divide the "
                              f"replay buffer's {self.padded} bytes")
@@ -282,31 +285,95 @@ class TensorReplay:
         if tuple(payload.shape) != (idx.size, block_bytes // 4):
             raise ValueError(f"packed rows {tuple(payload.shape)} != "
                              f"({idx.size}, {block_bytes // 4})")
-        self.deltas.append((idx, payload, block_bytes))
+        self.deltas.append((link, idx, payload, block_bytes))
         self.dtype, self.shape = dtype, list(shape)
 
     def finish(self) -> None:
-        """Check the final leaf against the replay buffer and drop the rows
-        that lie wholly past its end."""
         n = int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
         self.nbytes = n * str_dtype(self.dtype).itemsize
         if self.nbytes > self.padded:
             raise ValueError(f"leaf of {self.nbytes} B outgrows its replay "
                              f"buffer of {self.padded} B")
         kept = []
-        for idx, payload, bb in self.deltas:
+        for link, idx, payload, bb in self.deltas:
             keep = idx < n_blocks_of(self.nbytes, bb)
-            kept.append((idx[keep], payload[keep], bb))
+            kept.append((link, idx[keep], payload[keep], bb))
         self.deltas = kept
 
-    def run(self, device: Any) -> torch.Tensor:
-        """The replayed leaf, a new tensor on ``device``."""
+    def base_on(self, device: Any) -> torch.Tensor:
+        """The leaf at its final dtype and shape, a new tensor on
+        ``device`` holding the base's bytes (zeros past the base's end)."""
         buf = torch.zeros(self.nbytes, dtype=torch.uint8, device=device)
         raw = self.base.reshape(-1).view(np.uint8)[: self.nbytes]
         if raw.size:
             buf[: raw.size].copy_(torch.from_numpy(
                 raw if raw.flags.writeable else raw.copy()))
-        leaf = buf.view(str_to_torch_dtype(self.dtype)).view(tuple(self.shape))
-        for idx, payload, bb in self.deltas:
-            ops.unpack_dirty(leaf, idx, payload, bb)
-        return leaf
+        return buf.view(str_to_torch_dtype(self.dtype)).view(tuple(self.shape))
+
+
+class ChainReplay:
+    """The leaves of a DIFF chain that a restart places on devices,
+    replayed there: planned on the host leaf by leaf (:meth:`start`,
+    :meth:`add`, :meth:`drop`, :meth:`finish`), run link by link
+    (:meth:`run`).
+
+    It gives the numpy replay's bytes.  That replay scatters whole rows
+    into each base's zero-padded u32 buffer and keeps the first bytes, as
+    many as the last delta's dtype and shape need.  Here each leaf is made
+    once on its device at that final size, from its base's bytes (zeros
+    past the base's end); then, for each DIFF link in chain order, the rows
+    of every leaf that link touches are scattered in place by one
+    ``ops.unpack_dirty_many`` per device and group of at most
+    :data:`MAX_PACK_BYTES` of rows — the diffunpack kernel on the card, its
+    plain version on the CPU — which writes only bytes below each leaf's
+    end, the only bytes the numpy replay keeps.  :meth:`add` and
+    :meth:`finish` raise, on the host, where the numpy replay would raise
+    on the same data, so :meth:`run` can fail only on the device."""
+
+    def __init__(self) -> None:
+        self._leaves: Dict[str, _LeafReplay] = {}
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._leaves
+
+    def start(self, name: str, base: np.ndarray, block_bytes: int) -> None:
+        """Replay leaf ``name`` from its FULL base."""
+        self._leaves[name] = _LeafReplay(base, block_bytes)
+
+    def drop(self, name: str) -> None:
+        """Forget leaf ``name`` and its deltas (a later FULL dataset of it
+        supersedes them)."""
+        self._leaves.pop(name, None)
+
+    def add(self, name: str, link: int, dirty_idx: np.ndarray,
+            payload: np.ndarray, block_bytes: int, dtype: str,
+            shape: List[int]) -> None:
+        """Leaf ``name``'s delta in link ``link`` of the chain, links in
+        order; the leaf takes its dtype and shape."""
+        self._leaves[name].add(link, dirty_idx, payload, block_bytes, dtype,
+                               shape)
+
+    def finish(self) -> None:
+        """Check each final leaf against its replay buffer and drop the
+        rows that lie wholly past its end."""
+        for leaf in self._leaves.values():
+            leaf.finish()
+
+    def run(self, devices: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The replayed leaves, new tensors on ``devices[name]``."""
+        out = {name: leaf.base_on(devices[name])
+               for name, leaf in self._leaves.items()}
+        links: Dict[Tuple[int, int], List[Tuple[str, np.ndarray,
+                                                np.ndarray]]] = {}
+        for name, leaf in self._leaves.items():
+            for link, idx, payload, bb in leaf.deltas:
+                links.setdefault((link, bb), []).append((name, idx, payload))
+        for (_link, bb), entries in sorted(links.items()):
+            cap = max(1, MAX_PACK_BYTES // bb)
+            for group in row_groups([(out[name].device, idx.size)
+                                     for name, idx, _ in entries], cap):
+                ops.unpack_dirty_many(
+                    [out[entries[i][0]] for i, _, _ in group],
+                    [entries[i][1][a:b] for i, a, b in group],
+                    [entries[i][2][a:b] for i, a, b in group], bb)
+        return out

@@ -38,12 +38,12 @@ reported as ``recovered_via`` in the restored metadata).
 
 DIFF replay follows the restart template: a leaf whose template is a
 tensor has its FULL base placed on the template's device once and every
-later delta scattered into it there (``diff.TensorReplay``: the
-diffunpack kernel on the card); every other leaf replays with numpy on
-the host, as in the JAX package.  Both give the same bytes.  The chain is
-read, verified and planned first, inside the walk's fallback; the replay
-on the device runs after it, so a device error is raised, never taken for
-a bad checkpoint.
+later delta scattered into it there, one DIFF link at a time for all such
+leaves (``diff.ChainReplay``: the diffunpack kernel on the card); every
+other leaf replays with numpy on the host, as in the JAX package.  Both
+give the same bytes.  The chain is read, verified and planned first,
+inside the walk's fallback; the replay on the device runs after it, so a
+device error is raised, never taken for a bad checkpoint.
 """
 from __future__ import annotations
 
@@ -62,8 +62,8 @@ from repro_torch.core import manifest as mf
 from repro_torch.core.comm import Communicator
 from repro_torch.core.diff import (
     DiffEngine,
+    ChainReplay,
     LeafDelta,
-    TensorReplay,
     apply_delta,
     leaf_to_u32_flat,
     u32_flat_to_leaf,
@@ -664,7 +664,8 @@ class CheckpointPipeline:
         ``devices`` (path → device) that a DIFF link of the chain touches:
         each of those is placed on its device once, from its FULL base, and
         comes back as a tensor there with every delta scattered into it in
-        place.  A checkpoint whose containers fail to read, parse or verify
+        place, one scatter per DIFF link and device for all such leaves (per
+        group of at most ``diff.MAX_PACK_BYTES`` of rows).  A checkpoint whose containers fail to read, parse or verify
         — one holding sharded leaves (written by the JAX package's
         shard-local store) too, which this port cannot restore yet — makes
         the walk warn and fall back to an older id.  The replay on the
@@ -687,9 +688,8 @@ class CheckpointPipeline:
                     RuntimeWarning)
                 continue
             if got is not None:
-                named, replays, meta = got
-                for name, replay in replays.items():
-                    named[name] = replay.run(devices[name])
+                named, replay, meta = got
+                named.update(replay.run(devices))
                 return named, meta
         return None
 
@@ -738,10 +738,10 @@ class CheckpointPipeline:
 
         named: Dict[str, Any] = {}
         flat_u32: Dict[str, np.ndarray] = {}        # host replay buffers
-        replays: Dict[str, TensorReplay] = {}       # device replays, planned
+        replay = ChainReplay()                      # device replays, planned
         meta_shape: Dict[str, Tuple[str, List[int]]] = {}
         bb = None
-        for blob, man, _root in chain:
+        for link, (blob, man, _root) in enumerate(chain):
             bb = man.get("block_bytes", self.cfg.block_bytes)
             ckid = man.get("id", ckpt_id)
             rd = CHK5Reader(io.BytesIO(blob))
@@ -759,23 +759,23 @@ class CheckpointPipeline:
                     name = ds[len("data/"):]
                     named[name] = decode_leaf(rd, ds)
                     flat_u32.pop(name, None)
-                    replays.pop(name, None)
+                    replay.drop(name)
                     meta_shape.pop(name, None)
                 elif ds.startswith("delta/") and ds.endswith("/digest"):
                     name = ds[len("delta/"): -len("/digest")]
                     info = rd.info(ds)["attrs"]
                     idx = rd.read_dataset(f"delta/{name}/idx")
                     blocks = rd.read_dataset(f"delta/{name}/blocks")
-                    if name not in flat_u32 and name not in replays:
+                    if name not in flat_u32 and name not in replay:
                         if name not in named:
                             return None     # chain broken
                         if devices.get(name) is not None:
-                            replays[name] = TensorReplay(named[name], bb)
+                            replay.start(name, named[name], bb)
                         else:
                             flat_u32[name] = leaf_to_u32_flat(named[name], bb)
                     dt, shp = info["dtype"], info["shape"]
-                    if name in replays:
-                        replays[name].add(idx, blocks, bb, dt, shp)
+                    if name in replay:
+                        replay.add(name, link, idx, blocks, bb, dt, shp)
                     else:
                         flat_u32[name] = apply_delta(flat_u32[name], idx,
                                                      blocks, bb)
@@ -784,7 +784,6 @@ class CheckpointPipeline:
         for name, buf in flat_u32.items():
             dt, shp = meta_shape[name]
             named[name] = u32_flat_to_leaf(buf, dt, shp)
-        for replay in replays.values():
-            replay.finish()
+        replay.finish()
         final_meta = dict(chain[-1][1], recovered_via=via)
-        return named, replays, final_meta
+        return named, replay, final_meta

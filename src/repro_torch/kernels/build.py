@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries land
 in ``build/kernels/`` at the repository root (git-ignored), named by a
-hash of the source and flags, so a changed source is never served from a
-stale build.  Building happens at first use, never at import: the CPU
-tests import every module on machines with no CUDA toolkit.
+hash of the source, the headers it includes and the flags, so a changed
+source is never served from a stale build.  Building happens at first
+use, never at import: the CPU tests import every module on machines with
+no CUDA toolkit.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -66,7 +68,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags, the
+    source and the headers of ``csrc/`` it includes."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,36 +1,38 @@
-// diffpack — gather a leaf's dirty hash blocks into one dense buffer, sm_90a.
+// diffpack — gather the dirty hash blocks of many leaves into one dense
+// buffer, sm_90a.
 //
 // Replaces: src/repro/kernels/diffpack.py, `_copy_kernel` reached through
 // `diffpack_pallas` (one grid step per dirty block, the block index
 // scalar-prefetched into SMEM and read by the BlockSpec index map, over a
 // zero-padded (n_blocks, block_bytes/4) u32 copy of the leaf).
 //
-// Function: out[k] = block dirty_idx[k] of the leaf's raw bytes, as
-// block_bytes/4 little-endian u32 words, bytes past the leaf's end written
-// as zero (so the last row equals the reference's padded block).
+// Function: out[k] = block `table[k].block` of the leaf at `table[k].data`
+// (its raw bytes as block_bytes/4 little-endian u32 words), bytes past the
+// leaf's end written as zero (so the last row equals the reference's
+// padded block).  The table (`Row`, diffrow.cuh) has one entry per output
+// row, leaf after leaf, so a DIFF store packs every dirty leaf in one
+// launch; a single leaf is a table of one leaf's rows.
 //
 // What bounds it on an H100 SXM: pure data movement: the leaf's bytes in
 // each dirty block read once and every output row written once in full,
 // over 3.35 TB/s (about 72 us for the ~1,860 dirty blocks of a sparse
 // update of the tinyllama-1.1b-shaped state, whose 45 norm blocks hold
 // 8 KiB each).  Packed one leaf per launch, the 46 small leaves' launches
-// cost more than their bytes, so a DIFF store packs every dirty leaf in
-// one launch (`diffpack_many_launch`) over a table with one entry per
-// output row: (leaf pointer, leaf bytes, block index), built on the host
-// and copied to the card with one H2D.  The per-leaf entry
-// (`diffpack_launch`) stays for `ops.pack_dirty`.
+// cost more than their bytes, hence the table.
 //
 // Design: one CTA per output row (grid-stride beyond the grid cap).  There
-// is no scalar prefetch on Hopper, so each CTA loads its own index (or
-// table entry), then
-// copies the block with 16-byte loads and stores: consecutive threads touch
-// consecutive 16-byte vectors, so every warp moves 512 contiguous bytes per
-// instruction.  The leaf is read in place — no padded copy; the partial last
-// block keeps the 16-byte loads and writes 16-byte zeros past the end, and
-// only a leaf whose pointer is not 16-byte aligned takes a scalar path.  Indices are validated on the host before
-// they are copied to the card; the kernel never reads outside the leaf.
+// is no scalar prefetch on Hopper, so each CTA loads its own table entry,
+// then copies the block with 16-byte loads and stores: consecutive threads
+// touch consecutive 16-byte vectors, so every warp moves 512 contiguous
+// bytes per instruction.  The leaf is read in place — no padded copy; the
+// partial last block keeps the 16-byte loads and writes 16-byte zeros past
+// the end, and only a leaf whose pointer is not 16-byte aligned takes a
+// scalar path.  Indices are validated on the host before the table is
+// built; the kernel never reads outside the leaf.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "diffrow.cuh"
 
 namespace {
 
@@ -99,36 +101,6 @@ __device__ __forceinline__ void copy_block(const uint8_t* __restrict__ data,
 }
 
 __global__ void __launch_bounds__(kThreads)
-diffpack_kernel(const uint8_t* __restrict__ data, uint64_t nbytes,
-                uint32_t block_bytes, uint64_t n_blocks,
-                const int32_t* __restrict__ dirty_idx, uint64_t n_dirty,
-                uint32_t* __restrict__ out) {
-  for (uint64_t k = blockIdx.x; k < n_dirty; k += gridDim.x) {
-    const int32_t b = dirty_idx[k];
-    uint32_t* dst = out + k * (block_bytes / 4);
-    if (b < 0 || uint64_t(b) >= n_blocks) {
-      // out of range (the host validates, so this is a caller bug): write
-      // a zero row rather than read outside the leaf
-      for (uint32_t i = threadIdx.x; i < block_bytes / 4; i += kThreads) {
-        dst[i] = 0u;
-      }
-      continue;
-    }
-    copy_block(data, nbytes, uint64_t(b), block_bytes, dst);
-  }
-}
-
-// One entry of the batched pack's table: output row k is block `block` of
-// the leaf at `data`, `nbytes` long.
-struct Row {
-  uint64_t data;
-  uint64_t nbytes;
-  uint32_t block;
-  uint32_t pad;
-};
-static_assert(sizeof(Row) == 24, "the host builds this table in numpy");
-
-__global__ void __launch_bounds__(kThreads)
 diffpack_many_kernel(const Row* __restrict__ table, uint64_t n_rows,
                      uint32_t block_bytes, uint32_t* __restrict__ out) {
   for (uint64_t k = blockIdx.x; k < n_rows; k += gridDim.x) {
@@ -139,27 +111,6 @@ diffpack_many_kernel(const Row* __restrict__ table, uint64_t n_rows,
 }
 
 }  // namespace
-
-// data: the leaf's first byte; dirty_idx: (n_dirty,) int32 on the card, each
-// in [0, n_blocks) (a row for an index outside is zero); out: (n_dirty,
-// block_bytes/4) u32, written in full.
-// Launches on `stream` (the caller makes the stream's device current),
-// allocates nothing; returns cudaGetLastError().
-extern "C" int diffpack_launch(const void* data, unsigned long long nbytes,
-                               unsigned int block_bytes,
-                               unsigned long long n_blocks,
-                               const void* dirty_idx,
-                               unsigned long long n_dirty, void* out,
-                               void* stream) {
-  if (n_dirty == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned int grid =
-      n_dirty < kMaxGrid ? static_cast<unsigned int>(n_dirty) : kMaxGrid;
-  diffpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), nbytes, block_bytes, n_blocks,
-      static_cast<const int32_t*>(dirty_idx), n_dirty,
-      static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // table: (n_rows,) Row entries on the card (leaf pointer, leaf bytes, block
 // index; every block inside its leaf, which the host checks); out: (n_rows,

@@ -21,7 +21,7 @@ on the host from those small tables, as in the JAX package.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,9 +49,7 @@ def as_u32_blocks(x: torch.Tensor, block_bytes: int = DEFAULT_BLOCK_BYTES
     element splits into its low then high word, and a ragged tail is
     zero-padded.  This is the input of the plain versions; the kernels read
     the leaf's bytes in place instead."""
-    if block_bytes <= 0 or block_bytes % 4:
-        raise ValueError(f"block_bytes must be a positive multiple of 4, "
-                         f"got {block_bytes}")
+    dp.check_block_bytes(block_bytes)
     flat = x.detach().contiguous().reshape(-1)
     # an empty tensor may carry a stride of 0 (one made from an empty numpy
     # array), which a dtype view refuses; it has no bytes to view anyway
@@ -76,51 +74,44 @@ def blockhash(x: torch.Tensor, block_bytes: int = DEFAULT_BLOCK_BYTES
     return ref.blockhash2_ref(blocks)
 
 
-def pack_dirty(x: torch.Tensor, dirty_idx: np.ndarray,
-               block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
-    """Gather the blocks ``dirty_idx`` (host indices) of ``x`` →
-    ``(n_dirty, block_bytes/4)`` int32 (u32 bits), on ``x``'s device.  The
-    indices are checked against the leaf's block count here, on the host,
-    and then moved to the device as int32, as in the JAX package."""
-    _check_device(x)
-    idx_t = torch.from_numpy(_pack_indices(x, dirty_idx, block_bytes)
-                             ).to(x.device)
-    if x.is_cuda:
-        return dp.diffpack(x, idx_t, block_bytes)
-    blocks, _ = as_u32_blocks(x, block_bytes)
-    return ref.diffpack_ref(blocks, idx_t)
+def _check_leaves(what: str, leaves: Sequence[torch.Tensor],
+                  *per_leaf: Sequence) -> None:
+    """At least one leaf, one entry of each of ``per_leaf`` per leaf, and
+    every leaf on one device with a checkpoint kernel."""
+    counts = [len(p) for p in per_leaf]
+    if not leaves or any(n != len(leaves) for n in counts):
+        raise ValueError(f"{what} takes one index array per leaf, and at "
+                         f"least one leaf: got {len(leaves)} leaves, "
+                         f"{' and '.join(map(str, counts))} per-leaf arrays")
+    for x in leaves:
+        _check_device(x)
+        if x.device != leaves[0].device:
+            raise ValueError(f"{what} takes leaves on one device, got "
+                             f"{x.device} and {leaves[0].device}")
 
 
-def _pack_indices(x: torch.Tensor, dirty_idx: np.ndarray,
-                  block_bytes: int) -> np.ndarray:
-    """The host check of the blocks a pack gathers from ``x`` → the indices
-    as a flat int32 array, each in ``[0, n_blocks)``."""
-    idx = np.ascontiguousarray(dirty_idx, dtype=np.int32).reshape(-1)
-    n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
-    if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
-        raise IndexError(f"dirty block index outside [0, {n_blocks})")
-    return idx
+def _n_blocks(x: torch.Tensor, block_bytes: int) -> int:
+    return bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
 
 
 def pack_dirty_many(leaves: Sequence[torch.Tensor],
                     dirty_list: Sequence[np.ndarray],
                     block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
-    """:func:`pack_dirty` of many leaves on one device, concatenated →
-    ``(sum n_dirty, block_bytes/4)`` int32 (u32 bits) on that device.  The
-    indices are checked per leaf as :func:`pack_dirty` checks them; on the
+    """Gather the blocks ``dirty_list[i]`` (host indices) of every leaf i
+    on one device → ``(sum n_dirty, block_bytes/4)`` int32 (u32 bits) on
+    that device, leaf after leaf.  The indices are checked against each
+    leaf's block count here, on the host, as in the JAX package; on the
     card one launch packs every leaf (``diffpack_many``), on the CPU the
     plain version runs leaf by leaf."""
-    if len(leaves) != len(dirty_list) or not leaves:
-        raise ValueError(f"pack_dirty_many takes one index array per leaf, "
-                         f"and at least one leaf: got {len(leaves)} leaves, "
-                         f"{len(dirty_list)} index arrays")
-    for x in leaves:
-        _check_device(x)
-        if x.device != leaves[0].device:
-            raise ValueError(f"pack_dirty_many takes leaves on one device, "
-                             f"got {x.device} and {leaves[0].device}")
-    idxs = [_pack_indices(x, i, block_bytes)
-            for x, i in zip(leaves, dirty_list)]
+    _check_leaves("pack_dirty_many", leaves, dirty_list)
+    dp.check_block_bytes(block_bytes)
+    idxs = []
+    for x, i in zip(leaves, dirty_list):
+        idx = np.ascontiguousarray(i, dtype=np.int32).reshape(-1)
+        n_blocks = _n_blocks(x, block_bytes)
+        if idx.size and (idx.min() < 0 or idx.max() >= n_blocks):
+            raise IndexError(f"dirty block index outside [0, {n_blocks})")
+        idxs.append(idx)
     if leaves[0].is_cuda:
         return dp.diffpack_many(leaves, idxs, block_bytes)
     return torch.cat([ref.diffpack_ref(as_u32_blocks(x, block_bytes)[0],
@@ -143,36 +134,74 @@ def check_dirty_indices(dirty_idx: np.ndarray, n_blocks: int) -> np.ndarray:
     return idx.astype(np.int32)
 
 
-def unpack_dirty(x: torch.Tensor, dirty_idx: np.ndarray, packed: Any,
-                 block_bytes: int = DEFAULT_BLOCK_BYTES) -> torch.Tensor:
-    """Scatter packed blocks into ``x`` in place — the inverse of
-    :func:`pack_dirty` — and return ``x``: block ``dirty_idx[k]`` of
-    ``x``'s C-order bytes becomes row k of ``packed`` (``(n_dirty,
-    block_bytes/4)`` u32 words, host ``np.uint32`` or int32 bits), bytes
-    past the leaf's end dropped.  The indices are checked on the host
-    (:func:`check_dirty_indices`) before anything moves to the device.
-    ``x`` must be contiguous: the writes land in its own storage."""
-    _check_device(x)
-    n_blocks = bh.n_blocks_of(x.numel() * x.element_size(), block_bytes)
-    idx_t = torch.from_numpy(check_dirty_indices(dirty_idx, n_blocks)
-                             ).to(x.device)
+def _rows_tensor(packed: Any) -> torch.Tensor:
+    """Packed rows (host ``np.uint32`` words, or int32 bits in a tensor on
+    any device) → an int32 tensor, the host ones without a copy where
+    numpy allows."""
     if isinstance(packed, torch.Tensor):
-        rows = packed.detach()
-    else:
-        words = np.ascontiguousarray(packed).view(np.int32)
-        if not words.flags.writeable:   # rows read straight from a container
-            words = words.copy()
-        rows = torch.from_numpy(words)
-    rows = rows.to(x.device, torch.int32)
-    if x.is_cuda:
-        return dp.diffunpack(x, rows, idx_t, block_bytes)
-    dp.check_unpack_args(x, rows, idx_t, block_bytes)
-    if x.numel():
-        blocks, _ = as_u32_blocks(x, block_bytes)
-        out = ref.diffunpack_ref(blocks, rows, idx_t)
-        raw = x.detach().reshape(-1).view(torch.uint8)
-        raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
-    return x
+        return packed.detach().view(torch.int32)
+    words = np.ascontiguousarray(packed).view(np.int32)
+    if not words.flags.writeable:   # rows read straight from a container
+        words = words.copy()
+    return torch.from_numpy(words)
+
+
+def _gather_rows(rows: Sequence[torch.Tensor], device: torch.device,
+                 row_words: int) -> torch.Tensor:
+    """Every leaf's rows in one tensor: on ``device`` when they all lie
+    there, else in one pinned host buffer, for one copy to the card."""
+    if all(r.device == device for r in rows):
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
+    out = torch.empty((sum(r.shape[0] for r in rows), row_words),
+                      dtype=torch.int32, pin_memory=True)
+    row = 0
+    for r in rows:
+        out[row:row + r.shape[0]].copy_(r)
+        row += r.shape[0]
+    return out
+
+
+def unpack_dirty_many(leaves: Sequence[torch.Tensor],
+                      dirty_list: Sequence[np.ndarray],
+                      packed_list: Sequence[Any],
+                      block_bytes: int = DEFAULT_BLOCK_BYTES
+                      ) -> List[torch.Tensor]:
+    """Scatter packed blocks into every leaf on one device, in place — the
+    inverse of :func:`pack_dirty_many` — and return the leaves: block
+    ``dirty_list[i][k]`` of leaf i's C-order bytes becomes row k of
+    ``packed_list[i]`` (``(n_dirty, block_bytes/4)`` u32 words, host
+    ``np.uint32`` or int32 bits), bytes past the leaf's end dropped.  All
+    is checked on the host before anything moves to the device: each leaf
+    contiguous (the writes land in its own storage), its indices in range
+    and strictly increasing (:func:`check_dirty_indices`), its rows of the
+    indices' count.  On the card one launch scatters every leaf
+    (``diffunpack_many``: the rows and the table cross in one copy each);
+    on the CPU the plain version runs leaf by leaf."""
+    _check_leaves("unpack_dirty_many", leaves, dirty_list, packed_list)
+    dp.check_block_bytes(block_bytes)
+    idxs, rows = [], []
+    for x, i, p in zip(leaves, dirty_list, packed_list):
+        if not x.is_contiguous():
+            raise ValueError("diffunpack writes in place: the target tensor "
+                             "must be contiguous")
+        idx = check_dirty_indices(i, _n_blocks(x, block_bytes))
+        r = _rows_tensor(p)
+        if tuple(r.shape) != (idx.size, block_bytes // 4):
+            raise ValueError(f"packed rows {tuple(r.shape)} != "
+                             f"({idx.size}, {block_bytes // 4})")
+        idxs.append(idx)
+        rows.append(r)
+    if leaves[0].is_cuda:
+        dp.diffunpack_many(leaves, idxs, _gather_rows(
+            rows, leaves[0].device, block_bytes // 4), block_bytes)
+        return list(leaves)
+    for x, idx, r in zip(leaves, idxs, rows):
+        if x.numel() and idx.size:
+            blocks, _ = as_u32_blocks(x, block_bytes)
+            out = ref.diffunpack_ref(blocks, r.cpu(), torch.from_numpy(idx))
+            raw = x.detach().reshape(-1).view(torch.uint8)
+            raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
+    return list(leaves)
 
 
 def u32_numpy(t: torch.Tensor) -> np.ndarray:

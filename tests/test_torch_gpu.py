@@ -46,17 +46,17 @@ def test_hopper_kernels_match_plain_versions_on_card():
             want = ref.blockhash2_ref(ops.as_u32_blocks(x, bb)[0])
             assert torch.equal(bh.blockhash2(x, bb), want)
             n = want.shape[0]
-            idx = torch.from_numpy(np.unique(
-                np.array([0, n - 1, n // 2], np.int32))).cuda()
-            want_p = ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0], idx)
-            assert torch.equal(dp.diffpack(x, idx, bb), want_p)
+            idx = np.unique(np.array([0, n - 1, n // 2], np.int32))
+            want_p = ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0],
+                                      torch.from_numpy(idx).cuda())
+            assert torch.equal(dp.diffpack_many([x], [idx], bb), want_p)
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 def test_diffpack_many_matches_per_leaf_diffpack_on_card():
     """One launch over a table of (leaf, block) rows gives the rows of
-    per-leaf diffpack and of diffpack_ref, bit for bit: every dtype width,
+    one launch per leaf and of diffpack_ref, bit for bit: every dtype width,
     an unaligned view, a 0-byte leaf, a leaf with no dirty block, a ragged
     last block."""
     if not torch.cuda.is_available():
@@ -76,7 +76,7 @@ def test_diffpack_many_matches_per_leaf_diffpack_on_card():
         n0 = dp.LAUNCHES.n
         got = ops.pack_dirty_many(leaves, dirty, bb)
         assert dp.LAUNCHES.n == n0 + 1
-        per_leaf = torch.cat([dp.diffpack(x, torch.from_numpy(i).cuda(), bb)
+        per_leaf = torch.cat([dp.diffpack_many([x], [i], bb)
                               for x, i in zip(leaves, dirty)])
         plain = torch.cat([ref.diffpack_ref(ops.as_u32_blocks(x, bb)[0],
                                             torch.from_numpy(i).cuda())
@@ -88,8 +88,8 @@ def test_diffpack_many_matches_per_leaf_diffpack_on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("base", ["zeros", "random"])
 def test_diffunpack_matches_plain_version_on_card(base):
-    """diffunpack against diffunpack_ref on the card, bit for bit: 1, 7 and
-    many dirty blocks, a ragged last block, every dtype width, a storage
+    """diffunpack, one leaf per launch, against diffunpack_ref on the card,
+    bit for bit: 1, 7 and many dirty blocks, a ragged last block, every dtype width, a storage
     offset that breaks 16-byte alignment, a 0-byte leaf."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -124,17 +124,76 @@ def test_diffunpack_matches_plain_version_on_card(base):
                                      dtype=torch.int32)
                 want = ref.diffunpack_ref(blocks, rows, idx_t)
                 got = view(buf.clone())
-                assert dp.diffunpack(got, rows, idx_t, bb) is got
+                assert ops.unpack_dirty_many([got], [idx], [rows], bb)[0] \
+                    is got
                 got_bytes = (got.reshape(-1).view(torch.uint8) if nbytes
                              else torch.zeros(0, dtype=torch.uint8,
                                               device="cuda"))
                 assert torch.equal(
                     got_bytes, want.reshape(-1).view(torch.uint8)[:nbytes])
     with pytest.raises(ValueError, match="contiguous"):
-        dp.diffunpack(f[:4096].reshape(64, 64).t(),
-                      torch.zeros(1, 64, dtype=torch.int32, device="cuda"),
-                      torch.zeros(1, dtype=torch.int32, device="cuda"), 256)
+        dp.diffunpack_many([f[:4096].reshape(64, 64).t()],
+                           [np.zeros(1, np.int32)],
+                           torch.zeros(1, 64, dtype=torch.int32,
+                                       device="cuda"), 256)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bb", [256, 65_536])
+def test_diffunpack_many_mixed_table_matches_plain_version_on_card(bb):
+    """One launch over a table mixing every case — f32, bf16, int8, a
+    ragged last block, a 0-byte leaf, a view whose storage offset breaks
+    16-byte alignment, a leaf with no dirty block, rows given in host
+    memory and on the card — leaves each leaf as diffunpack_ref does, bit
+    for bit, writes nothing outside the views, and a relaunch gives the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f = torch.randn(300_001, generator=g, device="cuda")
+    raw = (f * 1000).to(torch.int64).to(torch.uint8)
+    rng = np.random.default_rng(6)
+
+    def leaves():
+        """Fresh leaves, and the buffers of the two offset views."""
+        fb, rb = f.clone(), raw.clone()
+        return [f.clone(), fb[1:], f[:7].to(torch.bfloat16),
+                (f * 100).to(torch.int8), torch.zeros(0, device="cuda"),
+                rb[3:70_003], (f * 100).to(torch.float16)], (fb, rb)
+
+    base, _ = leaves()
+    dirty, rows, want = [], [], []
+    for i, x in enumerate(base):
+        n = ops.as_u32_blocks(x, bb)[1]
+        idx = np.zeros(0, np.int32) if i == 6 else np.unique(np.append(
+            rng.choice(n, size=min(n, 5), replace=False), n - 1)
+        ).astype(np.int32)
+        r = torch.randint(-2 ** 31, 2 ** 31 - 1, (idx.size, bb // 4),
+                          generator=g, device="cuda", dtype=torch.int32)
+        nbytes = x.numel() * x.element_size()
+        w = ref.diffunpack_ref(ops.as_u32_blocks(x, bb)[0], r,
+                               torch.from_numpy(idx).cuda())
+        want.append(w.reshape(-1).view(torch.uint8)[:nbytes])
+        dirty.append(idx)
+        # odd leaves' rows on the card, even leaves' in host memory
+        rows.append(r if i % 2 else r.cpu().numpy().view(np.uint32))
+    got = []
+    for _ in range(2):
+        n0 = dp.UNPACK_LAUNCHES.n
+        ts, (fb, rb) = leaves()
+        out = ops.unpack_dirty_many(ts, dirty, rows, bb)
+        assert all(a is b for a, b in zip(out, ts))
+        assert dp.UNPACK_LAUNCHES.n == n0 + 1
+        torch.cuda.synchronize()
+        got.append([t.reshape(-1).view(torch.uint8) if t.numel() else
+                    torch.zeros(0, dtype=torch.uint8, device="cuda")
+                    for t in ts])
+        assert all(torch.equal(a, w) for a, w in zip(got[-1], want))
+        # nothing written outside the views
+        assert torch.equal(fb[:1], f[:1]) and torch.equal(rb[:3], raw[:3])
+        assert torch.equal(rb[70_003:], raw[70_003:])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
 
 
 @pytest.mark.gpu
@@ -165,8 +224,8 @@ def test_directive_path_on_card_goes_through_the_kernels(tmp_path):
     ctx2.shutdown()
     assert all(got[k].is_cuda and torch.equal(got[k], v)
                for k, v in state.items())
-    # the DIFF replayed on the card: one scatter per leaf of the delta
-    assert ops.launch_counts()["diffunpack"] == 2
+    # the DIFF replayed on the card: one scatter for both leaves of the link
+    assert ops.launch_counts()["diffunpack"] == 1
 
 
 @pytest.mark.gpu

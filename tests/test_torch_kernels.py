@@ -116,7 +116,7 @@ def test_as_u32_blocks_and_pack_dirty_match_reference(dtype):
         jpacked = jops.pack_dirty(jnp.asarray(a), jnp.asarray(idx), 3, 256)
     assert n == jn
     assert np.array_equal(ops.u32_numpy(blocks), np.asarray(jblocks))
-    assert np.array_equal(ops.u32_numpy(ops.pack_dirty(t, idx, 256)),
+    assert np.array_equal(ops.u32_numpy(ops.pack_dirty_many([t], [idx], 256)),
                           np.asarray(jpacked))
 
 
@@ -136,8 +136,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.reset_launch_counts()
     x = torch.arange(5000, dtype=torch.float32)
     ops.blockhash(x, 256)
-    rows = ops.pack_dirty(x, np.array([1, 2], np.int32), 256)
-    ops.unpack_dirty(x.clone(), np.array([1, 2], np.int32), rows, 256)
+    idx = np.array([1, 2], np.int32)
+    rows = ops.pack_dirty_many([x], [idx], 256)
+    ops.unpack_dirty_many([x.clone()], [idx], [rows], 256)
     qkv = x[:4096].reshape(2, 32, 64)
     ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {"blockhash2": 0, "diffpack": 0,
@@ -146,13 +147,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bh.blockhash2(x, 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        dp.diffpack(x, torch.zeros(1, dtype=torch.int32), 256)
+        dp.diffpack_many([x], [np.zeros(1, np.int32)], 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        dp.diffunpack(x, rows, torch.zeros(2, dtype=torch.int32), 256)
+        dp.diffunpack_many([x], [idx], rows, 256)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention(qkv, qkv, qkv)
     with pytest.raises(IndexError, match="outside"):
-        ops.pack_dirty(x, np.array([0, 79], np.int32), 256)
+        ops.pack_dirty_many([x], [np.array([0, 79], np.int32)], 256)
     with pytest.raises(ValueError, match="no checkpoint kernel"):
         ops.blockhash(x.to("meta"), 256)
 

@@ -63,9 +63,9 @@ def test_pack_dirty_many_matches_pallas_leaf_by_leaf(block_bytes):
                               block_bytes)
     assert got.dtype == torch.int32
     assert np.array_equal(ops.u32_numpy(got), np.concatenate(want))
-    # and the same rows as ops.pack_dirty, leaf by leaf
-    per_leaf = [ops.u32_numpy(ops.pack_dirty(numpy_to_tensor(a), i,
-                                             block_bytes))
+    # and the same rows as one leaf at a time
+    per_leaf = [ops.u32_numpy(ops.pack_dirty_many([numpy_to_tensor(a)], [i],
+                                                  block_bytes))
                 for a, i in zip(arrays, dirty)]
     assert np.array_equal(ops.u32_numpy(got), np.concatenate(per_leaf))
     assert ops.launch_counts()["diffpack"] == 0       # the plain version
@@ -85,8 +85,8 @@ def test_pack_dirty_many_checks_like_pack_dirty():
 
 def _per_leaf_pack(self, pending):
     """DiffEngine._pack_dirty as it was: one pack and one D2H per leaf."""
-    return {path: ops.u32_numpy(ops.pack_dirty(leaf, dirty,
-                                               self.block_bytes))
+    return {path: ops.u32_numpy(ops.pack_dirty_many([leaf], [dirty],
+                                                    self.block_bytes))
             for path, leaf, _h, dirty in pending if dirty.size}
 
 

@@ -1,11 +1,11 @@
 """DIFF replay on the restart template's device, on the CPU.
 
-``ops.unpack_dirty`` (the diffunpack kernel's entry point; its plain
-version here) against the JAX package's Pallas scatter in interpret mode
-and the numpy replay, with its index checks and its refusal of a target
-it cannot write in place.  Then the restore itself: a checkpoint chain
-restored into a template of CPU tensors (the leaves replay through
-``unpack_dirty``) equals, byte for byte, the port's numpy replay and the
+``ops.unpack_dirty_many`` on one leaf (the diffunpack kernel's entry
+point; its plain version here) against the JAX package's Pallas scatter in
+interpret mode and the numpy replay, with its index checks and its refusal
+of a target it cannot write in place.  Then the restore itself: a
+checkpoint chain restored into a template of CPU tensors (the leaves
+replay through ``unpack_dirty_many``, one call per DIFF link) equals, byte for byte, the port's numpy replay and the
 JAX package's own restore — over every case a restore meets: a plain DIFF
 chain, a mixed-kind container, a FULL dataset that supersedes an older
 delta, a DIFF whose base was stored with ``compress="int8"`` or
@@ -32,7 +32,7 @@ from repro_torch.core.context import (
 )
 from repro_torch.core import diff as tdiff
 from repro_torch.core.diff import (
-    TensorReplay,
+    ChainReplay,
     apply_delta,
     leaf_to_u32_flat,
     u32_flat_to_leaf,
@@ -45,7 +45,7 @@ BB = 256
 
 
 # --------------------------------------------------------------------------- #
-# ops.unpack_dirty
+# ops.unpack_dirty_many on one leaf
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16, np.uint8,
@@ -66,8 +66,8 @@ def test_unpack_dirty_equals_numpy_replay(dtype, n):
                                         packed, BB),
                             dtype_to_str(a.dtype), list(a.shape))
     t = numpy_to_tensor(a)
-    out = ops.unpack_dirty(t, idx, packed, BB)
-    assert out is t
+    out = ops.unpack_dirty_many([t], [idx], [packed], BB)
+    assert out[0] is t
     assert tensor_to_numpy(t).tobytes() == want.tobytes()
     if n and idx.size == n_blocks:                 # every block replaced
         assert tensor_to_numpy(t).tobytes() == new.tobytes()
@@ -82,38 +82,40 @@ def test_unpack_dirty_matches_pallas_scatter():
                          ).astype(np.uint32)
     idx = np.array([0, 2, 7, 8, 15], np.int32)
     t = numpy_to_tensor(base.copy())
-    ops.unpack_dirty(t, idx, packed, BB)
+    ops.unpack_dirty_many([t], [idx], [packed], BB)
     want = np.asarray(diffunpack_pallas(jnp.asarray(base),
                                         jnp.asarray(packed),
                                         jnp.asarray(idx), interpret=True))
     assert np.array_equal(tensor_to_numpy(t), want)
     # int32-bit rows on the tensor side take the same path
     t2 = numpy_to_tensor(base.copy())
-    ops.unpack_dirty(t2, idx, torch.from_numpy(packed.view(np.int32)), BB)
+    ops.unpack_dirty_many([t2], [idx], [torch.from_numpy(packed.view(np.int32))],
+                          BB)
     assert torch.equal(t2, t)
 
 
 def test_unpack_dirty_checks_indices_and_refuses_non_contiguous():
     x = torch.arange(1000, dtype=torch.float32)        # 16 blocks of 256 B
     rows = np.zeros((2, BB // 4), np.uint32)
+    def unpack(t, idx, r):
+        return ops.unpack_dirty_many([t], [np.array(idx, np.int32)], [r], BB)
+
     with pytest.raises(IndexError, match="outside"):
-        ops.unpack_dirty(x, np.array([3, 16], np.int32), rows, BB)
+        unpack(x, [3, 16], rows)
     with pytest.raises(IndexError, match="outside"):
-        ops.unpack_dirty(x, np.array([-1, 3], np.int32), rows, BB)
+        unpack(x, [-1, 3], rows)
     with pytest.raises(ValueError, match="increase strictly"):
-        ops.unpack_dirty(x, np.array([4, 4], np.int32), rows, BB)
+        unpack(x, [4, 4], rows)
     with pytest.raises(ValueError, match="increase strictly"):
-        ops.unpack_dirty(x, np.array([5, 4], np.int32), rows, BB)
+        unpack(x, [5, 4], rows)
     with pytest.raises(ValueError, match="packed rows"):
-        ops.unpack_dirty(x, np.array([1, 2, 3], np.int32), rows, BB)
+        unpack(x, [1, 2, 3], rows)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.unpack_dirty(x.reshape(40, 25).t(), np.array([1, 2], np.int32),
-                         rows, BB)
+        unpack(x.reshape(40, 25).t(), [1, 2], rows)
     assert torch.equal(x, torch.arange(1000, dtype=torch.float32))
     # a 0-byte leaf has one (padded) block: index 0 is taken, nothing written
     e = torch.zeros(0)
-    ops.unpack_dirty(e, np.array([0], np.int32),
-                     np.ones((1, BB // 4), np.uint32), BB)
+    unpack(e, [0], np.ones((1, BB // 4), np.uint32))
     assert e.numel() == 0
     assert ops.launch_counts()["diffunpack"] == 0      # CPU: plain version
 
@@ -124,8 +126,9 @@ def test_unpack_dirty_writes_through_a_view_with_an_offset():
     buf = torch.zeros(1100, dtype=torch.float32)
     view = buf[100:]                                   # 1,000 floats
     new = torch.arange(1000, dtype=torch.float32) + 1
-    rows = ops.pack_dirty(new, np.arange(16, dtype=np.int32), BB)
-    ops.unpack_dirty(view, np.arange(16, dtype=np.int32), rows, BB)
+    idx = np.arange(16, dtype=np.int32)
+    rows = ops.pack_dirty_many([new], [idx], BB)
+    ops.unpack_dirty_many([view], [idx], [rows], BB)
     assert torch.equal(view, new) and not bool(buf[:100].any())
 
 
@@ -250,13 +253,13 @@ def test_tensor_template_replay_equals_numpy_replay(tmp_path, monkeypatch,
 
     # the replay on the template's device, counted
     calls = []
-    real = ops.unpack_dirty
+    real = ops.unpack_dirty_many
 
-    def spy(leaf, idx, blocks, bb):
-        calls.append(idx.size)
-        return real(leaf, idx, blocks, bb)
+    def spy(leaves, idxs, blocks, bb):
+        calls.append(sum(i.size for i in idxs))
+        return real(leaves, idxs, blocks, bb)
 
-    monkeypatch.setattr(ops, "unpack_dirty", spy)
+    monkeypatch.setattr(ops, "unpack_dirty_many", spy)
     ctx = CheckpointContext(CheckpointConfig(dir=d, objstore=False))
     z = _zeros()
     got = ctx.load(unflatten_named(from_numpy_named(flatten_named(z)), z))
@@ -349,7 +352,7 @@ def test_device_replay_error_is_raised_not_taken_for_a_bad_checkpoint(
     def broken(*_a, **_k):
         raise RuntimeError("diffunpack: launch failed")
 
-    monkeypatch.setattr(ops, "unpack_dirty", broken)
+    monkeypatch.setattr(ops, "unpack_dirty_many", broken)
     eng = CheckpointContext(CheckpointConfig(dir=d, objstore=False))
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)   # nor a fallback
@@ -409,11 +412,12 @@ def test_tensor_replay_equals_numpy_replay_across_layouts(case):
     want = _numpy_replay(jdiff, base, deltas, dtype, shape)
     assert _numpy_replay(tdiff, base, deltas, dtype, shape).tobytes() == \
         want.tobytes()
-    replay = TensorReplay(base, BB)
-    for (idx, rows), (_, dt, shp) in zip(deltas, spec):
-        replay.add(idx, rows, BB, dt, shp)
+    replay = ChainReplay()
+    replay.start("x", base, BB)
+    for link, ((idx, rows), (_, dt, shp)) in enumerate(zip(deltas, spec)):
+        replay.add("x", link + 1, idx, rows, BB, dt, shp)
     replay.finish()
-    got = replay.run(torch.device("cpu"))
+    got = replay.run({"x": torch.device("cpu")})["x"]
     assert isinstance(got, torch.Tensor) and got.is_contiguous()
     got = tensor_to_numpy(got)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -423,22 +427,28 @@ def test_tensor_replay_equals_numpy_replay_across_layouts(case):
 def test_tensor_replay_refuses_on_the_host_what_the_numpy_replay_refuses():
     base = np.arange(1000, dtype=np.float32)            # 16 blocks of 256 B
     rows = np.zeros((1, BB // 4), np.uint32)
+
+    def replay():
+        r = ChainReplay()
+        r.start("x", base, BB)
+        return r
+
     with pytest.raises(IndexError):
         _numpy_replay(jdiff, base, [(np.array([16], np.int32), rows)],
                       "<f4", [1000])
     with pytest.raises(IndexError, match="outside"):
-        TensorReplay(base, BB).add(np.array([16], np.int32), rows, BB,
-                                   "<f4", [1000])
+        replay().add("x", 1, np.array([16], np.int32), rows, BB, "<f4",
+                     [1000])
     with pytest.raises(ValueError):                     # outgrows the buffer
         _numpy_replay(jdiff, base, [(np.array([0], np.int32), rows)],
                       "<f4", [1100])
-    replay = TensorReplay(base, BB)
-    replay.add(np.array([0], np.int32), rows, BB, "<f4", [1100])
+    r = replay()
+    r.add("x", 1, np.array([0], np.int32), rows, BB, "<f4", [1100])
     with pytest.raises(ValueError, match="outgrows"):
-        replay.finish()
+        r.finish()
     with pytest.raises(ValueError, match="packed rows"):
-        TensorReplay(base, BB).add(np.array([0, 1], np.int32), rows, BB,
-                                   "<f4", [1000])
+        replay().add("x", 1, np.array([0, 1], np.int32), rows, BB, "<f4",
+                     [1000])
 
 
 def test_empty_leaf_from_numpy_hashes_like_the_reference():
