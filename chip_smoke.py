@@ -372,7 +372,6 @@ def u32_max_abs_diff(torch, a, b) -> int:
 
 
 def check_kernels(torch, device, ops, ref, bh, dp):
-    from repro_torch.kernels import build
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     worst = {"blockhash2": 0, "diffpack": 0, "diffunpack": 0}
 
@@ -537,19 +536,11 @@ def check_kernels(torch, device, ops, ref, bh, dp):
         unpack_check(name, [(make(), idx, rows)])
     unpack_check("every case above in one table",
                  [(make(), idx, rows) for _, make, idx, rows in ucases])
-    small = [(f[:10_001].clone, np.arange(0, 157, 3, dtype=np.int32)),
-             (lambda: raw.clone()[3:1003], np.array([0, 3], np.int32))]
-    small = [(make, i, rand_u32(len(i), 64)) for make, i in small]
-    for design in unpack_designs(build):
-        dp.UNPACK_SOURCE = design
-        if design != "diffunpack":
-            unpack_check(f"{design}: every case above in one table",
-                         [(make(), idx, rows)
-                          for _, make, idx, rows in ucases])
-        unpack_check(f"{design}: block_bytes 256, an unaligned view beside "
-                     f"an aligned leaf",
-                     [(make(), i, rows) for make, i, rows in small], bb=256)
-    dp.UNPACK_SOURCE = "diffunpack"
+    small = [(f[:10_001].clone(), np.arange(0, 157, 3, dtype=np.int32)),
+             (raw.clone()[3:1003], np.array([0, 3], np.int32))]
+    unpack_check("block_bytes 256, an unaligned view beside an aligned "
+                 "leaf", [(x, i, rand_u32(len(i), 64)) for x, i in small],
+                 bb=256)
     # a round trip through the two batched entries: the rows
     # pack_dirty_many gathers from several leaves, shipped to the host as a
     # DIFF store ships them, then scattered by unpack_dirty_many into zeros
@@ -745,12 +736,6 @@ def unpack_bytes(t, idx, block_bytes: int) -> int:
     return 2 * leaf_bytes_in(t, idx, block_bytes) + 24 * len(idx)
 
 
-def unpack_designs(build) -> list:
-    """The sources of diffunpack's designs in the checkout: the kernel,
-    and the vector-only design beside it while both are compared."""
-    return [d for d in ("diffunpack", "diffunpack_vector")
-            if (build.CSRC / f"{d}.cu").exists()]
-
 
 def dirty_jobs(torch, state, ids, block_bytes: int):
     """(leaf, dirty block indices) of every leaf a sparse update with
@@ -789,7 +774,6 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     from repro_torch.core.protect import flatten_named
-    from repro_torch.kernels import build
     import numpy as np
 
     bb = BLOCK_BYTES
@@ -849,11 +833,8 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     urows = dp.diffpack_many(uleaves, uidx, bb)
     cut = np.cumsum([0] + [len(i) for i in uidx])
     rows_of = [urows[a:b] for a, b in zip(cut[:-1], cut[1:])]
-
-    def unpack_all():
-        dp.diffunpack_many(uleaves, uidx, urows, bb)
-
-    ms = device_ms(torch, unpack_all)
+    ms = device_ms(torch, lambda: dp.diffunpack_many(uleaves, uidx, urows,
+                                                     bb))
     per_leaf = device_ms(torch, lambda: [
         dp.diffunpack_many([t], [i], r, bb)
         for t, i, r in zip(uleaves, uidx, rows_of)])
@@ -871,18 +852,6 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
         f"{u_moved} B")
     log(f"[time] diffunpack of the same {u_dirty} blocks one launch per leaf "
         f"({len(uleaves)} launches of the same entry): {per_leaf:.4f} ms")
-    designs = unpack_designs(build)
-    if len(designs) > 1:
-        # both designs of the kernel, in turns, on the same delta
-        by = {d: [] for d in designs}
-        for d in designs + designs[::-1]:
-            dp.UNPACK_SOURCE = d
-            by[d].append(device_ms(torch, unpack_all))
-        dp.UNPACK_SOURCE = designs[0]
-        log("[time] diffunpack designs, store 4's delta in one launch, in "
-            "turns (ms): " + "; ".join(
-                f"{d} " + ", ".join(f"{x:.4f}" for x in v)
-                for d, v in by.items()))
     t, i, r = uleaves[0], uidx[0], rows_of[0]
     b, _, _, i64 = ujobs_b[0]
     u = device_ms(torch, lambda: dp.diffunpack_many([t], [i], r, bb))
@@ -1493,7 +1462,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.time()
-    sources = ["blockhash2", "diffpack", "flashattn"] + unpack_designs(build)
+    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
     logs = build.compile_all(sources)
     log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
         f"{time.time() - t:.1f} s")

@@ -26,25 +26,32 @@
 //
 // Design: one launch over the table, on a persistent grid: as many CTAs
 // as fit on the 132 SMs at once, each walking the rows k = blockIdx.x,
-// blockIdx.x + gridDim.x, ..., so no CTA is started per row.
-#ifndef DIFFUNPACK_VECTOR
-// The bytes of a row whose leaf and packed row are both 16-byte aligned
-// move by asynchronous bulk copies: one elected thread copies them in
-// chunks of up to 16 KiB from the packed row into shared memory
-// (`cp.async.bulk`, completing on an mbarrier) and from there into the
-// leaf (a bulk store), through a two-stage ring, so that one chunk's store
-// overlaps the next chunk's load — within a row and from one row to the
-// next.  The chunks stop at the last 16-byte boundary below the leaf's
-// end; the fewer than 16 bytes past it, and every row whose leaf is not
-// 16-byte aligned (a view with a storage offset), take the vector path
-// below on the other warps.
-#endif
-// The vector path: consecutive threads copy consecutive 16-byte vectors
-// (512 contiguous bytes per warp instruction), then u32 words (bytes only
-// where a word straddles the leaf's end) for what is left; a leaf that is
-// not 16-byte aligned takes words, or bytes where it is not 4-byte aligned
-// either.  The host checks that each leaf's indices lie in [0, n_blocks)
-// and increase strictly, so no two rows write the same bytes.
+// blockIdx.x + gridDim.x, ..., so no CTA is started per row.  The bytes of
+// a row whose leaf and packed row are both 16-byte aligned move by
+// asynchronous bulk copies: one elected thread copies them in chunks of up
+// to 16 KiB from the packed row into shared memory (`cp.async.bulk`,
+// completing on an mbarrier) and from there into the leaf (a bulk store),
+// through a two-stage ring, so that one chunk's store overlaps the next
+// chunk's load — within a row and from one row to the next.  The chunks
+// stop at the last 16-byte boundary below the leaf's end; the fewer than
+// 16 bytes past it, and every row whose leaf is not 16-byte aligned (a
+// view with a storage offset), take a vector path on the other warps:
+// consecutive threads copy consecutive 16-byte vectors (512 contiguous
+// bytes per warp instruction), then u32 words (bytes only where a word
+// straddles the leaf's end); a leaf that is not 16-byte aligned takes
+// words, or bytes where it is not 4-byte aligned either.  The host checks
+// that each leaf's indices lie in [0, n_blocks) and increase strictly, so
+// no two rows write the same bytes.
+//
+// Measured against the other design, the same persistent grid with every
+// row on the 16-byte vector path (the loop of the per-leaf kernel this
+// replaces), timed in turns in one call on store 4's 1,852 blocks (NVIDIA
+// H100 80GB HBM3, 700 W; chip_smoke.py at the commit that built both):
+// bulk copies 0.1011 and 0.1046 ms, vector loop 0.1070 and 0.1063 ms.
+// The bulk-copy design is kept.  With params/embed's 903 blocks alone
+// taking 0.0556 ms in the same call, both designs stream at about 80 % of
+// 3.35 TB/s after a fixed cost of about 12 us (the table's copy, the
+// launch, the grid's ramp).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -108,26 +115,6 @@ __device__ __forceinline__ bool row_span(const Row& r, uint64_t k,
   s->vec = packed16 && r.data % 16 == 0;
   return true;
 }
-
-#ifdef DIFFUNPACK_VECTOR
-
-__global__ void __launch_bounds__(kThreads)
-diffunpack_many_kernel(const Row* __restrict__ table, uint64_t n_rows,
-                       uint32_t block_bytes,
-                       const uint8_t* __restrict__ packed) {
-  const bool packed16 = reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
-                        block_bytes % 16 == 0;
-  for (uint64_t k = blockIdx.x; k < n_rows; k += gridDim.x) {
-    Span s;
-    if (row_span(table[k], k, block_bytes, packed, packed16, &s)) {
-      copy_span(s.dst, s.src, 0, s.end, s.vec, threadIdx.x, kThreads);
-    }
-  }
-}
-
-constexpr size_t kSmemBytes = 0;
-
-#else
 
 constexpr uint32_t kChunk = 16384;
 constexpr int kStages = 2;
@@ -243,8 +230,6 @@ diffunpack_many_kernel(const Row* __restrict__ table, uint64_t n_rows,
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
-
-#endif
 
 }  // namespace
 

@@ -40,9 +40,6 @@ UNPACK_LAUNCHES = build.LaunchCounter()
 ROW_DTYPE = np.dtype([("data", "<u8"), ("nbytes", "<u8"), ("block", "<u4"),
                       ("pad", "<u4")])
 
-#: the source diffunpack_many launches (its designs are compared in turns)
-UNPACK_SOURCE = "diffunpack"
-
 _MANY_ARGTYPES = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint,
                   ctypes.c_void_p, ctypes.c_void_p]
 
@@ -145,7 +142,7 @@ def diffunpack_many(leaves: Sequence[torch.Tensor],
             device, non_blocking=True)
     rows = rows.contiguous()
     table = _table_on(device, leaves, dirty_idx)
-    fn = build.function(UNPACK_SOURCE, "diffunpack_many_launch",
+    fn = build.function("diffunpack", "diffunpack_many_launch",
                         _MANY_ARGTYPES)
     with torch.cuda.device(device):
         err = fn(table.data_ptr(), n_rows, block_bytes, rows.data_ptr(),
