@@ -134,30 +134,32 @@ def check_dirty_indices(dirty_idx: np.ndarray, n_blocks: int) -> np.ndarray:
     return idx.astype(np.int32)
 
 
-def _rows_tensor(packed: Any) -> torch.Tensor:
-    """Packed rows (host ``np.uint32`` words, or int32 bits in a tensor on
-    any device) → an int32 tensor, the host ones without a copy where
-    numpy allows."""
+def _words(packed: Any) -> Any:
+    """Packed rows as u32 words in int32: a tensor's int32 view, or a host
+    array's (``np.uint32``) int32 view, neither copied."""
     if isinstance(packed, torch.Tensor):
         return packed.detach().view(torch.int32)
-    words = np.ascontiguousarray(packed).view(np.int32)
-    if not words.flags.writeable:   # rows read straight from a container
-        words = words.copy()
-    return torch.from_numpy(words)
+    return np.ascontiguousarray(packed).view(np.int32)
 
 
-def _gather_rows(rows: Sequence[torch.Tensor], device: torch.device,
+def _gather_rows(words: Sequence[Any], device: torch.device,
                  row_words: int) -> torch.Tensor:
     """Every leaf's rows in one tensor: on ``device`` when they all lie
-    there, else in one pinned host buffer, for one copy to the card."""
-    if all(r.device == device for r in rows):
-        return rows[0] if len(rows) == 1 else torch.cat(rows)
-    out = torch.empty((sum(r.shape[0] for r in rows), row_words),
+    there, else in one pinned host buffer (one copy of each host array),
+    for one copy to the card."""
+    if all(isinstance(w, torch.Tensor) and w.device == device
+           for w in words):
+        return words[0] if len(words) == 1 else torch.cat(words)
+    out = torch.empty((sum(w.shape[0] for w in words), row_words),
                       dtype=torch.int32, pin_memory=True)
+    host = out.numpy()
     row = 0
-    for r in rows:
-        out[row:row + r.shape[0]].copy_(r)
-        row += r.shape[0]
+    for w in words:
+        if isinstance(w, torch.Tensor):
+            out[row:row + w.shape[0]].copy_(w)
+        else:
+            host[row:row + w.shape[0]] = w
+        row += w.shape[0]
     return out
 
 
@@ -185,20 +187,23 @@ def unpack_dirty_many(leaves: Sequence[torch.Tensor],
             raise ValueError("diffunpack writes in place: the target tensor "
                              "must be contiguous")
         idx = check_dirty_indices(i, _n_blocks(x, block_bytes))
-        r = _rows_tensor(p)
-        if tuple(r.shape) != (idx.size, block_bytes // 4):
-            raise ValueError(f"packed rows {tuple(r.shape)} != "
+        w = _words(p)
+        if tuple(w.shape) != (idx.size, block_bytes // 4):
+            raise ValueError(f"packed rows {tuple(w.shape)} != "
                              f"({idx.size}, {block_bytes // 4})")
         idxs.append(idx)
-        rows.append(r)
+        rows.append(w)
     if leaves[0].is_cuda:
         dp.diffunpack_many(leaves, idxs, _gather_rows(
             rows, leaves[0].device, block_bytes // 4), block_bytes)
         return list(leaves)
-    for x, idx, r in zip(leaves, idxs, rows):
+    for x, idx, w in zip(leaves, idxs, rows):
         if x.numel() and idx.size:
+            if not isinstance(w, torch.Tensor):
+                # rows read straight from a container are read-only
+                w = torch.from_numpy(w if w.flags.writeable else w.copy())
             blocks, _ = as_u32_blocks(x, block_bytes)
-            out = ref.diffunpack_ref(blocks, r.cpu(), torch.from_numpy(idx))
+            out = ref.diffunpack_ref(blocks, w.cpu(), torch.from_numpy(idx))
             raw = x.detach().reshape(-1).view(torch.uint8)
             raw.copy_(out.reshape(-1).view(torch.uint8)[: raw.numel()])
     return list(leaves)
