@@ -53,21 +53,44 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    after) must be two per layer and step.
 6. The rest of the main path, with the default ``CheckpointConfig``
    (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
-   same tinyllama-1.1b-shaped state (depth ``--layers``): a FULL
+   same tinyllama-1.1b-shaped state: a FULL
    L4 store, a sparse update, a DIFF L4 store (the second store's uploaded
    bytes against the first's); the node-local and global directories
    wiped, a fresh context restores from the object store alone, replaying
    the DIFF on the card, bit-exact.  Then an incremental store in two
    parts, a DIFF with the exact dirty-block count and a bit-exact restore;
    and one SCR FULL store and restart, bit-exact.  The CDC chunker's rate
-   on this host is measured on 256 MiB of random bytes.
+   on this host is measured on 256 MiB of random bytes.  Its depth is
+   ``--objstore-layers`` (default 4): its FULL L4 store runs the host's
+   CDC scan, as phase 7's two publishes do (``--layers`` where that is
+   fewer).
+7. Serving and checkpoint-as-deployment at full width: tinyllama-1.1b
+   (22 layers, bf16 compute) serves a batch of 4 seeded prompts of 128
+   tokens with a 2048-slot KV cache (184.5 MB), deterministic.  Run A
+   prefills and generates 64 tokens.  Run B stores a FULL ``ServeState``
+   after prefill (FTI, level 1, CP-dedicated thread), a DIFF every 16
+   tokens (each with the dirty-block count the written positions give),
+   faults after 48 tokens; a fresh context restores into a cold cache on
+   the card (the DIFF chain replayed with ``diffunpack``) and generation
+   goes on.  B's tokens and final state must equal A's bit for bit.  Then
+   a publisher (default ``CheckpointConfig``: object store on) stores the
+   params as a FULL at L4, a ``FleetDeployer`` rolls them onto two
+   replicas on the card, one per poll; a fine-tune in place (1,024
+   tokens' rows of embed and columns of lm_head, every norm) is published
+   and rolled the same way.  After each swap the replica's params must be
+   ``torch.equal`` to the published tree, the fleet must show at most two
+   entries, the second rollout must fetch under 0.30 of the entry's
+   bytes, and a swapped replica must generate the tokens of an engine
+   built on the published tree.  The kernels' launches over the phase
+   must match the leaves hashed, the DIFF stores packed and the links
+   replayed.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5 and 6 on the CPU with the plain versions (phase 5
-on a reduced config) and prints no result.
+rehearses phases 3, 5, 6 and 7 on the CPU with the plain versions (phases
+5 and 7 on a reduced config) and prints no result.
 """
 from __future__ import annotations
 
@@ -87,6 +110,10 @@ ROOT = Path(__file__).resolve().parent
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 OBJ_DIR = ROOT / "build" / "chip_smoke_objstore"
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+#: phase 6's depth: its FULL L4 store spends ~30 s per GB in the host's CDC
+#: scan, and phase 7 publishes two 4.40 GB FULL trees through the same scan
+OBJSTORE_LAYERS = 4
 
 # H100 SXM rates the bounds divide by, at the card's maximum SM clock of
 # 1.98 GHz x 132 SMs.  HBM: NVIDIA's data sheet.  Integer: the data sheet
@@ -972,9 +999,9 @@ _KERNEL_GROUPS = (
 
 
 def profile_step(torch, step) -> None:
-    """One more training step under ``torch.profiler``: device time by
-    kernel group and the device's idle share of the step.  Prints that no
-    device time was recorded if the profiler sees none."""
+    """One more step (of training, or of decode) under ``torch.profiler``:
+    device time by kernel group and the device's idle share of the step.
+    Prints that no device time was recorded if the profiler sees none."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1002,8 +1029,8 @@ def profile_step(torch, step) -> None:
         log("[profile] torch.profiler recorded no device time")
         return
     log(f"[profile] one step under torch.profiler: {wall * 1e3:.1f} ms "
-        f"wall, {busy:.1f} ms of device time, idle share "
-        f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        f"wall, {busy:.1f} ms of device time in {sum(x[1] for x in top)} "
+        f"kernels, idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
     for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"[profile]   {g}: {ms:.1f} ms ({ms / busy:.1%})")
     for ms, n, key in sorted(top, reverse=True)[:10]:
@@ -1238,7 +1265,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"256 KiB / 1 MiB / 4 MiB, {256 if on_card else 8} MiB of random "
         f"bytes)")
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    state = tinyllama_state(torch, args.layers, args.width_div,
+    state = tinyllama_state(torch, args.objstore_layers, args.width_div,
                             device, gen)
     sync(torch, device)
     named = flatten_named(state)
@@ -1247,7 +1274,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
-    log(f"[obj] state: {args.layers} of 22 layers, {len(named)} "
+    log(f"[obj] state: {args.objstore_layers} of 22 layers, {len(named)} "
         f"leaves, {nbytes / 1e9:.2f} GB on {device}")
 
     def want_dirty(ids):
@@ -1287,7 +1314,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         return got, seen["meta"], time.time() - t
 
     shutil.rmtree(OBJ_DIR, ignore_errors=True)
-    out = {"depth": args.layers, "cdc_mb_s": rate}
+    out = {"depth": args.objstore_layers, "cdc_mb_s": rate}
     ttrace.reset()
     ttrace.enable()
     ops.reset_launch_counts()
@@ -1419,18 +1446,341 @@ def objstore_path(torch, args, device, ops) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 7: serving and checkpoint-as-deployment
+# --------------------------------------------------------------------------- #
+
+#: batch, prompt tokens, cache length, tokens generated, a DIFF store every
+#: SERVE_EVERY tokens and the fault after SERVE_FAULT (on the card; the CPU
+#: rehearsal divides them)
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 4, 128, 2048
+SERVE_GEN, SERVE_EVERY, SERVE_FAULT = 64, 16, 48
+SERVE_TUNED_TOKENS = 1024
+
+
+def cache_dirty_blocks(k, positions, block_bytes: int) -> int:
+    """Hash blocks of one stacked (n_groups, B, C, KV, dh) cache leaf that
+    the decode steps at ``positions`` wrote: one row of KV·dh elements per
+    (layer, sequence) slab and position."""
+    n_groups, batch, c = k.shape[:3]
+    row = k.shape[3] * k.shape[4] * k.element_size()
+    out = set()
+    for slab in range(n_groups * batch):
+        for pos in positions:
+            lo = (slab * c + pos % c) * row
+            out.update(range(lo // block_bytes,
+                             (lo + row - 1) // block_bytes + 1))
+    return len(out)
+
+
+def serve_path(torch, args, device, ops) -> dict:
+    """Phase 7.  Serve and resume: run A generates uninterrupted; run B
+    stores a FULL ServeState after prefill and a DIFF every SERVE_EVERY
+    tokens, faults after SERVE_FAULT, restores into a cold cache on the
+    device (the DIFF chain replayed there) and generates on; both must
+    agree bit for bit.  Then a rolling deploy: a publisher stores two FULL
+    param trees at L4 through the object store, a FleetDeployer rolls each
+    onto two replicas, one per poll.  → the kernels' launch counts over
+    the phase."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.context import (CHK_DIFF, CheckpointConfig,
+                                          CheckpointContext)
+    from repro_torch.core.formats import tensor_to_numpy
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.models.zoo import build_model
+    from repro_torch.objstore.client import make_object_store
+    from repro_torch.serve.deploy import FleetDeployer, Replica
+    from repro_torch.serve.engine import (ServeState, ServingEngine,
+                                          WeightsHandle)
+    from repro_torch.train.step import use_deterministic_algorithms
+
+    on_card = device.type == "cuda"
+    bb = args.block_bytes
+    cfg = get_arch("tinyllama-1.1b")
+    batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
+    n_tuned = SERVE_TUNED_TOKENS
+    if not on_card:                                  # the CPU rehearsal
+        cfg, batch, prompt, max_len = cfg.reduced(), 2, 8, 64
+        gen_n, every, fault, n_tuned = 16, 4, 12, 2
+    if on_card:
+        use_deterministic_algorithms()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    handle = WeightsHandle(params=model.init(
+        torch.Generator(device=device).manual_seed(SEED + 7)))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(SEED + 8),
+                            dtype=torch.int32).to(device)
+    cache_bytes = 2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads * \
+        cfg.head_dim * torch.empty((), dtype=getattr(
+            torch, cfg.compute_dtype)).element_size()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
+        f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
+        f"tokens, max_len {max_len}: KV cache {cache_bytes / 1e6:.1f} MB")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    log(f"[serve] free disk under {SERVE_DIR.parent}: "
+        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB")
+    ops.reset_launch_counts()
+
+    # run A: prefill, then gen_n tokens uninterrupted
+    eng = ServingEngine(model, handle, batch, max_len)
+    sync(torch, device)
+    t = time.time()
+    eng.prefill(prompts)
+    sync(torch, device)
+    prefill_s = time.time() - t
+    st_prefill = eng.get_state()
+    t = time.time()
+    toks_a = eng.generate(gen_n)
+    sync(torch, device)
+    gen_s = time.time() - t
+    decode_ms = gen_s / gen_n * 1e3
+    tokens_per_s = batch * gen_n / gen_s
+    final_a = {k: tensor_to_numpy(v)
+               for k, v in flatten_named(eng.get_state()).items()}
+    log(f"[serve] run A: prefill {prompt} tokens in {prefill_s:.3f} s "
+        f"({prefill_s / prompt * 1e3:.2f} ms per step); {gen_n} "
+        f"tokens in {gen_s:.3f} s: {decode_ms:.2f} ms per decode "
+        f"step, {tokens_per_s:.1f} tokens/s")
+    if on_card:                        # one more decode step, profiled
+        profile_step(torch, lambda: eng.generate(1))
+    del eng
+
+    # run B: FULL after prefill, a DIFF every `every` tokens, a fault after
+    # `fault`, a restore into a cold cache on the device, generate on
+    ckpt_cfg = CheckpointConfig(dir=str(SERVE_DIR / "b"), backend="fti",
+                                block_bytes=bb, dedicated_thread=True,
+                                objstore=False)
+    reports, blocked, want_dirty = [], {}, {}
+    ctx = CheckpointContext(ckpt_cfg).observe_store_reports(reports.append)
+    eng = ServingEngine(model, handle, batch, max_len)
+    eng.set_state(st_prefill)
+
+    def store(kind):
+        st = eng.get_state()
+        t = time.time()
+        ctx.store(st, id=int(st.pos), level=1, kind=kind)
+        blocked[int(st.pos)] = time.time() - t
+        return st
+
+    prev = store("FULL")
+    named = flatten_named(prev)
+    total_blocks = sum(n_blocks(v, bb) for v in named.values())
+    toks_b = []
+    while int(eng.state.pos) - prompt < fault:
+        p0 = int(eng.state.pos)
+        toks_b.append(eng.generate(every))
+        st = store(CHK_DIFF)
+        moved = int(not torch.equal(st.last_token, prev.last_token))
+        want_dirty[int(st.pos)] = 1 + moved + sum(
+            cache_dirty_blocks(c, range(p0, p0 + every), bb)
+            for c in flatten_named(st.caches).values())
+        prev = st
+    log(f"[serve] run B: fault after {fault} tokens (the engine and its "
+        f"caches are dropped)")
+    del eng, prev, st
+    t = time.time()
+    ctx.shutdown()
+    drain_s = time.time() - t
+    by_id = {r.ckpt_id: r for r in reports}
+    diffs = sorted(want_dirty)
+    if sorted(by_id) != [prompt] + diffs or any(
+            by_id[i].kind != CHK_DIFF for i in diffs):
+        fail(f"run B committed {[(r.ckpt_id, r.kind) for r in reports]}")
+    for i in [prompt] + diffs:
+        r = by_id[i]
+        got = None if r.dirty_ratio is None else \
+            round(r.dirty_ratio * total_blocks)
+        log(f"[serve] store {i}: kind={r.kind} bytes_payload="
+            f"{r.bytes_payload} plan_s={r.plan_seconds:.4f} store_call_s="
+            f"{blocked[i]:.4f} total_s={r.seconds:.4f}" + (
+                "" if got is None else
+                f" dirty blocks {got} (expected {want_dirty[i]})"))
+        if got is not None and got != want_dirty[i]:
+            fail(f"serve DIFF {i}: {got} dirty blocks, expected "
+                 f"{want_dirty[i]} from the positions written")
+    log(f"[serve] shutdown waited {drain_s:.2f} s for the last tail")
+
+    template = ServeState(model.init_caches(batch, max_len, device=device),
+                          torch.tensor(0, dtype=torch.int32),
+                          torch.zeros((batch, 1), dtype=torch.int32,
+                                      device=device))
+    n0 = ops.launch_counts()["diffunpack"]
+    sync(torch, device)
+    t = time.time()
+    ctx = CheckpointContext(ckpt_cfg)
+    restored = ctx.load(template)
+    ctx.shutdown()
+    sync(torch, device)
+    restore_s = time.time() - t
+    replayed = ops.launch_counts()["diffunpack"] - n0
+    if not ctx.restarted or int(restored.pos) != prompt + fault:
+        fail(f"the serving restore found pos "
+             f"{int(restored.pos) if ctx.restarted else None}, not "
+             f"{prompt + fault}")
+    eng = ServingEngine(model, handle, batch, max_len)
+    eng.set_state(restored)
+    del restored, template
+    toks_b.append(eng.generate(gen_n - fault))
+    got_b = torch.cat(toks_b, dim=1)
+    if not torch.equal(got_b, toks_a):
+        fail("run B's tokens differ from run A's after the restore")
+    bad = [k for k, v in flatten_named(eng.get_state()).items()
+           if tensor_to_numpy(v).tobytes() != final_a[k].tobytes()]
+    if bad:
+        fail(f"run B's final ServeState differs from run A's: {bad}")
+    del eng
+    log(f"[serve] restore: {restore_s:.3f} s (FULL + {len(diffs)} "
+        f"DIFF links into a cold cache on {device}, {replayed} diffunpack "
+        f"launches); run B's {gen_n} tokens and final ServeState equal run "
+        f"A's bit for bit")
+
+    # rolling deploy: publish v1, roll it; fine-tune in place, publish v2,
+    # roll it; one replica per poll
+    pub_kw = {} if on_card else dict(     # the CPU rehearsal's tiny tree
+        objstore_cdc_min_bytes=1024, objstore_cdc_avg_bytes=4096,
+        objstore_cdc_max_bytes=16384, objstore_chunk_bytes=4096)
+    pub = CheckpointContext(CheckpointConfig(
+        dir=str(SERVE_DIR / "pub"), backend="fti", block_bytes=bb, **pub_kw))
+    pub_reports = []
+    pub.observe_store_reports(pub_reports.append)
+    v = model.init(torch.Generator(device=device).manual_seed(SEED + 9))
+    other = WeightsHandle(params=model.init(
+        torch.Generator(device=device).manual_seed(SEED + 10)))
+    replicas = [Replica(name=f"r{i}", cache_root=str(SERVE_DIR / f"cache-{i}"),
+                        prefix="params",
+                        engine=ServingEngine(model, other, batch, max_len))
+                for i in range(2)]
+    del other
+    dep = FleetDeployer(make_object_store(
+        "file:" + str(SERVE_DIR / "pub" / "objstore")), replicas)
+    published = {}
+
+    def publish(entry):
+        t = time.time()
+        pub.store({"params": v}, id=entry, level=4)
+        call = time.time() - t
+        pub.wait()
+        published[entry] = {k: x.clone() for k, x in flatten_named(v).items()}
+        r = pub_reports[-1]
+        log(f"[serve] publish {entry}: FULL L4 bytes_payload "
+            f"{r.bytes_payload}, store_call_s {call:.3f}, plan_s "
+            f"{r.plan_seconds:.3f}, total_s {r.seconds:.3f}")
+
+    def rollout(entry):
+        before = dict(dep.stats)
+        actions, swap_s = [], []
+        while True:
+            t = time.time()
+            st = dep.poll()
+            actions.append(st["action"])
+            if len(set(dep.fleet_epochs().values())) > 2:
+                fail(f"the fleet shows {dep.fleet_epochs()}: more than two "
+                     f"entries")
+            if st["action"] == "swapped":
+                sync(torch, device)
+                swap_s.append(time.time() - t)
+                r = next(x for x in replicas if x.name == st["replica"])
+                got = flatten_named(r.engine.params)
+                bad = [k for k, x in published[entry].items()
+                       if got[k].device != x.device
+                       or not torch.equal(got[k], x)]
+                if bad:
+                    fail(f"replica {r.name} after the swap to entry {entry}: "
+                         f"{bad[:5]} differ from the published tree")
+            if st["action"] in ("converged", "pinned") or len(actions) > 8:
+                break
+        if actions != ["started", "swapped", "swapped", "converged"]:
+            fail(f"rollout of entry {entry}: polls gave {actions}")
+        fetched = dep.stats["bytes_fetched"] - before["bytes_fetched"]
+        cached = dep.stats["bytes_cached"] - before["bytes_cached"]
+        ratio = fetched / max(fetched + cached, 1)
+        log(f"[serve] rollout of entry {entry}: polls {actions}; swaps "
+            f"{', '.join(f'{x:.3f}' for x in swap_s)} s; fetched {fetched} "
+            f"B, cached {cached} B (fetch ratio {ratio:.5f}); fleet "
+            f"{dep.fleet_epochs()}")
+        return ratio, swap_s
+
+    publish(1)
+    rollout(1)
+    del published[1]
+    # a fine-tune in place: distinct token ids, so each row moves once
+    ids = torch.randperm(cfg.vocab_size, generator=torch.Generator(
+        ).manual_seed(SEED + 11))[:n_tuned].to(device)
+    with torch.no_grad():
+        v["embed"][ids] += 0.5
+        v["lm_head"][:, ids] += 0.5
+        for k, x in flatten_named(v).items():
+            if k.endswith("/scale"):
+                x.add_(0.25)
+    publish(2)
+    ratio2, _ = rollout(2)
+    pub.shutdown()
+    log(f"[serve] free disk after both rollouts: "
+        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9 if on_card else 0:.2f} GB")
+    if ratio2 >= 0.30:
+        fail(f"the second rollout fetched {ratio2:.5f} of the entry's "
+             f"bytes, not below 0.30")
+
+    # a swapped replica serves what an engine born with v2 serves
+    n_cmp = every
+    r0 = replicas[0].engine
+    r0.set_state(st_prefill)
+    direct = ServingEngine(model, v, batch, max_len)
+    direct.set_state(st_prefill)
+    if not torch.equal(r0.generate(n_cmp), direct.generate(n_cmp)):
+        fail("a replica swapped to entry 2 generates other tokens than an "
+             "engine built on the published tree")
+    log(f"[serve] replica r0 (entry {r0.weights.entry_id}, epoch "
+        f"{r0.weights.epoch}) generates the {n_cmp} tokens of an engine "
+        f"built on the published tree")
+    n_param_leaves = len(published[2])
+    del replicas, dep, direct, r0, v, published, handle, st_prefill
+    sync(torch, device)
+    launches = ops.launch_counts()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    if on_card:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+
+    # every store hashes the ServeState's leaves on the card (pos lives on
+    # the host), each publish the param tree's; one pack per DIFF store and
+    # one unpack per DIFF link replayed
+    n_dev = sum(x.device.type == device.type for x in named.values())
+    want = {"blockhash2": (1 + len(diffs)) * n_dev + 2 * n_param_leaves,
+            "diffpack": len(diffs), "diffunpack": len(diffs),
+            "flashattn": 0}
+    log(f"[serve] kernel launches over the phase: {launches} "
+        f"(expected on the card: {want})")
+    if on_card and (launches != want or replayed != len(diffs)):
+        fail("phase 7 launch counts do not match the leaves hashed, the "
+             "DIFF stores packed and the DIFF links replayed")
+    return launches
+
+# --------------------------------------------------------------------------- #
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--layers", type=int, default=22,
-                    help="decoder layers of phases 3 and 6 (the only cut "
-                         "allowed on the card; training keeps all 22)")
+                    help="decoder layers of phase 3 (a cut of depth; "
+                         "training and serving keep all 22)")
+    ap.add_argument("--objstore-layers", type=int, default=None,
+                    help=f"decoder layers of phase 6 (a cut of depth: its "
+                         f"FULL L4 store runs the host's CDC scan; default "
+                         f"{OBJSTORE_LAYERS}, or --layers if fewer)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
                     help="CPU rehearsal only: hash block size")
     args = ap.parse_args()
+    if args.objstore_layers is None:
+        args.objstore_layers = min(OBJSTORE_LAYERS, args.layers)
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1448,6 +1798,7 @@ def main() -> None:
         main_path(torch, args, torch.device("cpu"), ops)
         training_path(torch, args, torch.device("cpu"), ops)
         objstore_path(torch, args, torch.device("cpu"), ops)
+        serve_path(torch, args, torch.device("cpu"), ops)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -1496,6 +1847,9 @@ def main() -> None:
     obj = objstore_path(torch, args, device, ops)
     log(f"[phase] object store, incremental, SCR ({obj['depth']} of 22 "
         f"layers): {time.time() - t:.1f} s")
+    t = time.time()
+    serve_launches = serve_path(torch, args, device, ops)
+    log(f"[phase] serve and deploy: {time.time() - t:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1505,9 +1859,10 @@ def main() -> None:
     log(smi.stdout.strip().splitlines()[0])
     # each kernel's launches come from the path that runs it, counted from
     # zero over that path: the directive path (phase 3) for the hash, the
-    # pack and the unpack, the training path (phase 5) for attention
+    # pack and the unpack, the training path (phase 5) for attention; every
+    # path's own counts stand in launches_by_path
     paths = {"directive": launches, "training": train["launches"],
-             "objstore": obj["launches"]}
+             "objstore": obj["launches"], "serve": serve_launches}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -1531,7 +1886,7 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "layers": args.layers if path == "directive" else 22,
             "layers_by_path": {"directive": args.layers, "training": 22,
-                               "objstore": obj["depth"]}})
+                               "objstore": obj["depth"], "serve": 22}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,22 +1,31 @@
-"""Attention for training and prefill: GQA (+qkv bias), sliding window.
+"""Attention: GQA (+qkv bias), sliding window, and one-token decode with a
+KV cache.
 
-The PyTorch counterpart of ``repro.models.attention`` for the train/prefill
-path.  Tensors are (batch, seq, heads, head_dim); scores and softmax are
-f32.  ``REPRO_ATTN_IMPL=flash`` routes GQA without a sliding window through
-the flash kernel (``kernels.ops.flash_attention_gqa``, which reads the KV
+The PyTorch counterpart of ``repro.models.attention``.  Tensors are
+(batch, seq, heads, head_dim); scores and softmax are f32.
+``REPRO_ATTN_IMPL=flash`` routes GQA without a sliding window through the
+flash kernel (``kernels.ops.flash_attention_gqa``, which reads the KV
 heads in place: the Hopper kernel on a CUDA tensor, its plain version on
-the CPU); the default is the
-query-blockwise version below, as in the reference.
+the CPU); the default is the query-blockwise version below, as in the
+reference.
+
+Decode (:func:`gqa_decode`) writes the new K/V row into the cache *in
+place* (the reference's ``dynamic_update_slice`` returns a new cache) and
+returns the same :class:`KVCache`; a windowed cache (allocated at exactly
+the sliding window) rolls, writing slot ``pos % C``.  ``pos`` is a host
+integer, so a step slices the cache without waiting on the device.  The
+scores cover the cache's valid prefix (``min(pos + 1, C)`` slots: the
+slots the reference's mask keeps) and read the grouped KV heads in place,
+without repeating them.
 
 The reference's sharding hints are dropped: one device needs none.  MLA
-and cross-attention raise; decode (KV caches, ``gqa_decode``, the MLA
-cache) belongs to the serving slice (ROADMAP Queue 1, item 3), and the
-model zoo's decode entry points raise.
+and cross-attention raise: they come with the MLA and encoder-decoder
+models (ROADMAP Queue 1, item 2).
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,7 +37,7 @@ from repro_torch.models.layers import apply_rope, dense_init
 Params = Dict[str, Any]
 
 _NEG_INF = -1e30
-_SERVING = "ROADMAP Queue 1, item 3 (serving)"
+_MLA = "ROADMAP Queue 1, item 2 (MLA: minicpm3-4b)"
 
 
 def _attn_impl() -> str:
@@ -60,7 +69,7 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     if cfg.attn_kind == "mla":
         raise NotImplementedError(
-            f"MLA attention is not ported yet ({_SERVING} brings MLA)")
+            f"MLA attention is not ported yet ({_MLA})")
     return init_gqa(gen, cfg, dtype)
 
 
@@ -174,6 +183,74 @@ def gqa_attention(
 
 
 # --------------------------------------------------------------------------- #
+# GQA decode (one step, KV cache)
+# --------------------------------------------------------------------------- #
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor              # (B, C, KV, dh)  C = max_len or window
+    v: torch.Tensor
+
+    def is_windowed(self, cfg: ArchConfig) -> bool:
+        """Rolling cache iff allocated at exactly the sliding window size."""
+        return cfg.sliding_window is not None and \
+            self.k.shape[1] == cfg.sliding_window
+
+
+def init_kv_cache(batch: int, cfg: ArchConfig, max_len: int, dtype,
+                  device="cuda") -> KVCache:
+    w = cfg.sliding_window
+    c = w if (w is not None and w < max_len) else max_len
+    shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def gqa_decode(
+    p: Params,
+    x: torch.Tensor,              # (B, 1, d)
+    cache: KVCache,
+    pos,                          # int (or 0-d tensor) — current position
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One token → (out (B, 1, d), the same cache with slot ``pos`` (or
+    ``pos % C`` when windowed) written in place)."""
+    pos = int(pos)
+    b = x.shape[0]
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = float(1.0 / torch.tensor(float(dh)).sqrt())
+
+    q = x @ p["wq"]
+    knew = x @ p["wk"]
+    vnew = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        knew = knew + p["bk"]
+        vnew = vnew + p["bv"]
+    q = q.reshape(b, 1, h, dh)
+    knew = knew.reshape(b, 1, kvh, dh)
+    vnew = vnew.reshape(b, 1, kvh, dh)
+    if cfg.use_rope:
+        pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos_b, cfg.rope_theta)
+        knew = apply_rope(knew, pos_b, cfg.rope_theta)
+
+    c = cache.k.shape[1]
+    slot = pos % c if cache.is_windowed(cfg) else pos
+    cache.k[:, slot] = knew[:, 0]
+    cache.v[:, slot] = vnew[:, 0]
+    n = min(pos + 1, c)            # the slots the reference's mask keeps
+    ck, cv = cache.k[:, :n], cache.v[:, :n]
+
+    # query head h reads KV head h // rep, as repeat_kv would lay them out
+    qg = q[:, 0].reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, ck).float() * scale
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs, cv).reshape(b, 1, h * dh)
+    return out @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
 # dispatch helpers
 # --------------------------------------------------------------------------- #
 
@@ -181,5 +258,19 @@ def gqa_attention(
 def attention(p, x, cfg: ArchConfig, **kw):
     if cfg.attn_kind == "mla":
         raise NotImplementedError(
-            f"MLA attention is not ported yet ({_SERVING} brings MLA)")
+            f"MLA attention is not ported yet ({_MLA})")
     return gqa_attention(p, x, cfg, **kw)
+
+
+def init_decode_cache(batch: int, cfg: ArchConfig, max_len: int, dtype,
+                      device="cuda"):
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(
+            f"the MLA decode cache is not ported yet ({_MLA})")
+    return init_kv_cache(batch, cfg, max_len, dtype, device)
+
+
+def attention_decode(p, x, cache, pos, cfg: ArchConfig):
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"MLA decode is not ported yet ({_MLA})")
+    return gqa_decode(p, x, cache, pos, cfg)

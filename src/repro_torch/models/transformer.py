@@ -13,14 +13,22 @@ backward write a full-size zero tensor.  ``remat=True`` (the reference's
 ``jax.checkpoint`` of the group body) checkpoints each layer with
 ``torch.utils.checkpoint`` (non-reentrant).
 
-MoE, SSM and hybrid layers, and decode, are not ported yet and raise.
+Decode keeps the reference's cache layout: ``init_caches`` gives one
+:class:`~repro_torch.models.attention.KVCache` per layer of the pattern,
+its leaves stacked ``(n_groups, B, C, KV, dh)``, so a serving state's
+leaf names and shapes (``caches/0/k``) are the reference's.
+``lm_decode_step`` writes each layer's new K/V row in place and returns
+the caches it was given.
 
-Forward signature:
+MoE, SSM and hybrid layers are not ported yet and raise.
+
+Forward signatures:
   ``lm_forward(params, tokens, cfg, extra_embeds=None) → (logits, aux)``
+  ``lm_decode_step(params, token, caches, pos, cfg) → (logits, caches)``
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -191,3 +199,73 @@ def lm_forward(
         h = torch.cat([extra_embeds.to(cdt), h], dim=1)
     h, aux = lm_backbone(params, h, cfg, remat=remat)
     return lm_logits(params, h, cfg), aux
+
+
+# --------------------------------------------------------------------------- #
+# decode (one token, stacked caches, a loop over groups)
+# --------------------------------------------------------------------------- #
+
+
+class LayerCache(NamedTuple):
+    """Per-group cache union; unused fields are shape-(0,) placeholders."""
+    attn: Any
+    ssm: Any
+
+
+def init_caches(batch: int, cfg: ArchConfig, max_len: int,
+                device="cuda") -> Any:
+    """Stacked (n_groups, ...) cache tree in ``cfg.compute_dtype``."""
+    _check_dense(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    pattern = _pattern(cfg)
+    n_groups = cfg.n_layers // len(pattern)
+    caches = []
+    for _kind in pattern:
+        one = attn.init_decode_cache(batch, cfg, max_len, cdt, "meta")
+        caches.append(type(one)(*(
+            torch.zeros((n_groups,) + tuple(x.shape), dtype=x.dtype,
+                        device=device) for x in one)))
+    return caches
+
+
+def cache_struct(batch: int, cfg: ArchConfig, max_len: int) -> Any:
+    """The cache tree's shapes and dtypes, allocated on the ``meta``
+    device (no memory)."""
+    return init_caches(batch, cfg, max_len, device="meta")
+
+
+def cache_protects(selector: str = "**") -> list:
+    """Explicit axis metadata for :func:`init_caches` trees, carried as
+    ``Protect`` axis clauses: every leaf is stacked ``(n_groups, B, ...)``,
+    so batch is dim 1."""
+    from repro_torch.core.protect import Protect
+    return [Protect(selector, axis={"batch": 1})]
+
+
+def lm_decode_step(
+    params: Params,
+    token: torch.Tensor,                       # (B, 1) integer
+    caches: Any,
+    pos,                                       # int (or 0-d tensor)
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, Any]:
+    _check_dense(cfg)
+    pos = int(pos)
+    cdt = dtype_of(cfg.compute_dtype)
+    params = cast_floating(params, cdt)
+    pattern = _pattern(cfg)
+    n_groups = params["groups"][0]["ln1"]["scale"].shape[0]
+    layers = [_unstack(params["groups"][i], n_groups)
+              for i in range(len(pattern))]
+    h = F.embedding(token.long(), params["embed"]).to(cdt)
+    for g in range(n_groups):
+        for i, _kind in enumerate(pattern):
+            p = layers[i][g]
+            c = caches[i]
+            y, _ = attn.attention_decode(
+                p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps),
+                type(c)(*(x[g] for x in c)), pos, cfg)
+            h = h + y
+            h = h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps),
+                        cfg.act)
+    return lm_logits(params, h, cfg), caches

@@ -4,9 +4,11 @@ The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs:
 
   init(gen)                      → params on ``gen.device``
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
+  init_caches(batch, max_len, device="cuda") → caches
+  decode_step(params, token, caches, pos) → (logits, caches)
 
-Encoder-decoder models and decode (``init_caches`` / ``decode_step``) are
-later slices and raise.
+``decode_step`` updates the caches in place and returns them.
+Encoder-decoder models are a later slice and raise.
 """
 from __future__ import annotations
 
@@ -25,8 +27,12 @@ class Model:
     cfg: ArchConfig
     init: Callable[..., Any]                   # (gen) → params
     forward: Callable[..., Any]                # (params, batch, remat=) → (logits, aux)
-    init_caches: Callable[..., Any]            # serving slice: raises
-    decode_step: Callable[..., Any]            # serving slice: raises
+    init_caches: Callable[..., Any]            # (batch, max_len, device=) → caches
+    cache_struct: Callable[..., Any]           # (batch, max_len) → meta caches
+    decode_step: Callable[..., Any]            # (params, token, caches, pos)
+    cache_protects: Callable[[], Any] = lm_mod.cache_protects
+    # () → [Protect]: explicit batch-axis metadata for the cache tree
+    # (layers stacked in dim 0, batch in dim 1)
 
 
 def _lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -34,12 +40,6 @@ def _lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return lm_mod.lm_forward(
         params, batch["tokens"], cfg,
         extra_embeds=batch.get("patch_embeds"), remat=remat)
-
-
-def _decode_pending(*_args, **_kw):
-    raise NotImplementedError(
-        "decode (KV caches, decode_step) is not ported yet (ROADMAP Queue 1, "
-        "item 3: serving)")
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -51,6 +51,19 @@ def build_model(cfg: ArchConfig) -> Model:
         cfg=cfg,
         init=functools.partial(lm_mod.init_lm, cfg=cfg),
         forward=functools.partial(_lm_forward, cfg=cfg),
-        init_caches=_decode_pending,
-        decode_step=_decode_pending,
+        init_caches=functools.partial(_lm_caches, cfg=cfg),
+        cache_struct=functools.partial(_lm_cache_struct, cfg=cfg),
+        decode_step=functools.partial(_lm_decode, cfg=cfg),
     )
+
+
+def _lm_caches(batch: int, max_len: int, cfg: ArchConfig, device="cuda"):
+    return lm_mod.init_caches(batch, cfg, max_len, device)
+
+
+def _lm_cache_struct(batch: int, max_len: int, cfg: ArchConfig):
+    return lm_mod.cache_struct(batch, cfg, max_len)
+
+
+def _lm_decode(params, token, caches, pos, cfg: ArchConfig):
+    return lm_mod.lm_decode_step(params, token, caches, pos, cfg)

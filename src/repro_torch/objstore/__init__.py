@@ -1,12 +1,7 @@
 """repro_torch.objstore — content-addressed object-store L4: an S3-shaped
 client abstraction, chunk-level dedup uploads, a CAS-guarded checkpoint
 catalog, crash-safe retention GC, and the ``ObjectStoreTier`` that
-composes them into the checkpoint pipeline's level-4 stack.
-
-Copies of the JAX package's jax-free ``repro.objstore`` modules, changed
-only in their import prefix (chunk digests and catalogs are shared by the
-two packages byte for byte).  The catalog subscriber (``subscriber.py``)
-feeds the serving deploy path and comes with the serving slice."""
+composes them into the checkpoint pipeline's level-4 stack."""
 from repro_torch.objstore.catalog import Catalog, CatalogConflictError
 from repro_torch.objstore.cdc import CDCParams, Chunker
 from repro_torch.objstore.chunks import (
@@ -32,12 +27,13 @@ from repro_torch.objstore.inspect import (
     EntryInfo,
     FileInfo,
 )
+from repro_torch.objstore.subscriber import CatalogSubscriber, DeploySelector
 
 __all__ = [
-    "CDCParams", "Catalog", "CatalogConflictError", "CatalogView",
-    "ChunkCache", "ChunkDelta", "ChunkStream", "ChunkUploader", "Chunker",
-    "EntryInfo", "FileEntry", "FileInfo", "LocalFSObjectStore",
-    "MemoryObjectStore", "ObjectStore", "ObjectStoreError",
-    "PreconditionFailed", "chunk_key", "collect", "fetch_file_delta",
-    "make_object_store", "retention_split",
+    "CDCParams", "Catalog", "CatalogConflictError", "CatalogSubscriber",
+    "CatalogView", "ChunkCache", "ChunkDelta", "ChunkStream",
+    "ChunkUploader", "Chunker", "DeploySelector", "EntryInfo", "FileEntry",
+    "FileInfo", "LocalFSObjectStore", "MemoryObjectStore", "ObjectStore",
+    "ObjectStoreError", "PreconditionFailed", "chunk_key", "collect",
+    "fetch_file_delta", "make_object_store", "retention_split",
 ]

@@ -379,3 +379,132 @@ def test_reduced_training_on_card_goes_through_flash(tmp_path, monkeypatch):
         assert a["params/embed"].is_cuda
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# --------------------------------------------------------------------------- #
+# serving and deploy on the card
+# --------------------------------------------------------------------------- #
+
+def _serve_model(compute="bfloat16"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").reduced(),
+                              compute_dtype=compute)
+    return cfg, build_model(cfg)
+
+
+@pytest.mark.gpu
+def test_decode_on_card_matches_the_cpu():
+    """lm_decode_step on the card against the same step on the CPU, f32
+    compute, 8 steps: logits within 1e-4 and the caches within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    cfg, m = _serve_model("float32")
+    params = m.init(torch.Generator().manual_seed(0))
+    on_card = unflatten_named({k: v.cuda() for k, v in
+                               flatten_named(params).items()}, params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    c_cpu = m.init_caches(2, 16, device="cpu")
+    c_gpu = m.init_caches(2, 16, device="cuda")
+    for i in range(8):
+        a, c_cpu = m.decode_step(params, toks[:, i:i + 1], c_cpu, i)
+        b, c_gpu = m.decode_step(on_card, toks[:, i:i + 1].cuda(), c_gpu, i)
+        assert float((a - b.cpu()).abs().max()) <= 1e-4
+    for x, y in zip(flatten_named(c_cpu).values(),
+                    flatten_named(c_gpu).values()):
+        assert y.is_cuda and float((x - y.cpu()).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_serve_state_store_restore_on_card_goes_through_the_kernels(tmp_path):
+    """A ServeState on the card: FULL after prefill, DIFF 4 tokens later,
+    a restore into a cold cache on the card (the DIFF replayed with one
+    diffunpack launch), generation resumed bit-equal to an uninterrupted
+    engine, in deterministic mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.context import (CHK_DIFF, CheckpointConfig,
+                                          CheckpointContext)
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.serve.engine import ServeState, ServingEngine
+    from repro_torch.train.step import use_deterministic_algorithms
+
+    use_deterministic_algorithms()
+    try:
+        cfg, m = _serve_model()
+        params = m.init(torch.Generator(device="cuda").manual_seed(0))
+        prompts = torch.randint(0, cfg.vocab_size, (2, 6), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(1)
+                                ).cuda()
+        ref = ServingEngine(m, params, batch=2, max_len=32)
+        ref.prefill(prompts)
+        want = ref.generate(10)
+        eng = ServingEngine(m, params, batch=2, max_len=32)
+        eng.prefill(prompts)
+        ckcfg = CheckpointConfig(dir=str(tmp_path / "ck"), backend="fti",
+                                 block_bytes=256, objstore=False)
+        ops.reset_launch_counts()
+        ctx = CheckpointContext(ckcfg)
+        ctx.store(eng.get_state(), id=6, level=1)
+        first = eng.generate(4)
+        ctx.store(eng.get_state(), id=10, level=1, kind=CHK_DIFF)
+        ctx.shutdown()
+        # k, v and last_token hashed on the card at each store (pos is a
+        # host leaf), one pack for the DIFF
+        assert ops.launch_counts() == {"blockhash2": 6, "diffpack": 1,
+                                       "diffunpack": 0, "flashattn": 0}
+        cold = ServeState(m.init_caches(2, 32, device="cuda"),
+                          torch.tensor(0, dtype=torch.int32),
+                          torch.zeros((2, 1), dtype=torch.int32,
+                                      device="cuda"))
+        ctx = CheckpointContext(ckcfg)
+        got = ctx.load(cold)
+        ctx.shutdown()
+        assert ops.launch_counts()["diffunpack"] == 1
+        assert ctx.restarted and int(got.pos) == 10
+        assert got.caches[0].k.is_cuda and got.last_token.is_cuda
+        back = ServingEngine(m, params, batch=2, max_len=32)
+        back.set_state(got)
+        rest = back.generate(6)
+        assert torch.equal(torch.cat([first, rest], dim=1), want)
+        a, b = flatten_named(back.get_state()), flatten_named(ref.get_state())
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.gpu
+def test_fleet_swap_on_card_installs_the_published_tree(tmp_path):
+    """A FULL L4 publish of params on the card, a FleetDeployer rolling it
+    onto a replica on the card: the swapped params are on the card and
+    torch.equal to the published ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.objstore.client import make_object_store
+    from repro_torch.serve.deploy import FleetDeployer, Replica
+    from repro_torch.serve.engine import ServingEngine
+
+    _cfg, m = _serve_model()
+    pub = m.init(torch.Generator(device="cuda").manual_seed(2))
+    ctx = CheckpointContext(CheckpointConfig(
+        dir=str(tmp_path / "pub"), backend="fti", dedicated_thread=False,
+        objstore_cdc_min_bytes=1024, objstore_cdc_avg_bytes=4096,
+        objstore_cdc_max_bytes=16384))
+    ctx.store({"params": pub}, id=1, level=4)
+    ctx.shutdown()
+    eng = ServingEngine(m, m.init(torch.Generator(device="cuda").manual_seed(
+        3)), batch=2, max_len=16)
+    dep = FleetDeployer(make_object_store(
+        "file:" + str(tmp_path / "pub" / "objstore")),
+        [Replica(name="r0", engine=eng, cache_root=str(tmp_path / "cache"),
+                 prefix="params")])
+    assert dep.run_until_converged()["action"] == "converged"
+    got, want = flatten_named(eng.params), flatten_named(pub)
+    assert eng.weights.entry_id == 1
+    assert all(got[k].is_cuda and torch.equal(got[k], want[k]) for k in want)

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither jax nor any module
-of the JAX package ``repro``, and its main path runs with jax absent — as
-``chip_smoke.py`` drives it, which also refuses to run without a card."""
+of the JAX package ``repro``, and its main paths (directives, training,
+serving and deploy) run with jax absent — as ``chip_smoke.py`` drives
+them, which also refuses to run without a card."""
 import ast
 import os
 import subprocess
@@ -79,6 +80,40 @@ back = ctx4.load(init_train_state(model.init(torch.Generator().manual_seed(9)),
 ctx4.shutdown()
 a, b = flatten_named(st), flatten_named(back)
 assert ctx4.restarted and all(torch.equal(a[k], b[k]) for k in a)
+# serving: prefill, generate, a store of the ServeState and a restore,
+# then a weight swap pulled from the object store by a FleetDeployer
+from repro_torch.objstore.client import make_object_store
+from repro_torch.serve.deploy import FleetDeployer, Replica
+from repro_torch.serve.engine import ServeState, ServingEngine
+params = model.init(torch.Generator().manual_seed(3))
+eng = ServingEngine(model, params, batch=2, max_len=16)
+eng.prefill(torch.randint(0, acfg.vocab_size, (2, 4), dtype=torch.int32))
+toks = eng.generate(3)
+assert toks.shape == (2, 3) and int(eng.get_state().pos) == 7
+scfg = CheckpointConfig(dir=d + "/serve", backend="fti", objstore=False)
+ctx7 = CheckpointContext(scfg)
+ctx7.store(eng.get_state(), id=7, level=1)
+ctx7.shutdown()
+ctx8 = CheckpointContext(scfg)
+cold = ServeState(model.init_caches(2, 16, device="cpu"),
+                  torch.tensor(0, dtype=torch.int32),
+                  torch.zeros((2, 1), dtype=torch.int32))
+back = ctx8.load(cold)
+ctx8.shutdown()
+assert ctx8.restarted and int(back.pos) == 7
+pub = CheckpointContext(CheckpointConfig(
+    dir=d + "/pub", backend="fti", dedicated_thread=False,
+    objstore_cdc_min_bytes=1024, objstore_cdc_avg_bytes=4096,
+    objstore_cdc_max_bytes=16384))
+pub.store({"params": params}, id=1, level=4)
+pub.shutdown()
+dep = FleetDeployer(make_object_store("file:" + d + "/pub/objstore"),
+                    [Replica(name="r0", engine=eng, cache_root=d + "/cache",
+                             prefix="params")])
+assert dep.run_until_converged()["action"] == "converged"
+assert eng.weights.entry_id == 1 and torch.equal(eng.params["embed"],
+                                                  params["embed"])
+assert eng.generate(2).shape == (2, 2)
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 print("isolated-ok")
@@ -102,7 +137,9 @@ def test_no_module_of_the_port_imports_jax_or_repro():
             "kernels/flashattn.py", "train/step.py", "train/loop.py",
             "launch/train.py", "data/synthetic.py", "configs/base.py",
             "core/incremental.py", "backends/scr.py", "objstore/tier.py",
-            "objstore/cdc.py", "objstore/chunks.py"} <= scanned
+            "objstore/cdc.py", "objstore/chunks.py", "objstore/subscriber.py",
+            "serve/engine.py", "serve/deploy.py", "launch/serve.py",
+            "core/resharding.py"} <= scanned
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -131,6 +168,8 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "dirty blocks: store 2" in out.stdout
     assert "resumed TrainState equals run A's bit for bit" in out.stdout
+    assert "final ServeState equal run A's bit for bit" in out.stdout
+    assert "generates the 4 tokens of an engine built on" in out.stdout
     assert '"ok"' not in out.stdout            # a CPU run prints no result
 
 

@@ -1,4 +1,6 @@
-"""The port's directive store/restart path on the CPU: the recovery ladder,
+"""The port's directive store/restart path on the CPU: the recovery ladder
+({fti, scr, veloc} × {FULL, DIFF, incremental} × L1–L4, as
+tests/test_pipeline.py runs it), async composition and deferred errors,
 checkpoints cross-read between the two packages in both directions, and
 the hazards torch's in-place updates bring.
 
@@ -56,24 +58,49 @@ def _backends(tmp_path, name, objstore=False):
     return cluster, [make_backend(cfg, c, name, **kw) for c in cluster.comms]
 
 
-@pytest.mark.parametrize("backend", ["fti", "veloc"])
-@pytest.mark.parametrize("kind", [CHK_FULL, CHK_DIFF])
+def _store(b, rank, kind, level):
+    """One committed checkpoint of ``kind`` on backend ``b`` (id of the
+    newest)."""
+    if kind == "INC":
+        inc = b.tcl_store_begin(1, level)
+        inc.add({"w": _named(rank)["w"]})
+        inc.add({"step": _named(rank)["step"]})
+        inc.commit()
+        b.tcl_wait()
+        return 1
+    b.tcl_store(_named(rank), 1, level, CHK_FULL)
+    b.tcl_wait()
+    if kind == CHK_DIFF:
+        named2 = _named(rank)
+        named2["w"][3] = -7.0
+        b.tcl_store(named2, 2, level, CHK_DIFF)
+        b.tcl_wait()
+        return 2
+    return 1
+
+
+def test_recovery_ladder_is_l1_to_l4(tmp_path):
+    """The read path tries tiers in FTI's ladder order L1→L2→L3→L4, with
+    the object store as the final rung."""
+    cluster, backends = _backends(tmp_path, "fti", objstore=True)
+    names = [t.name for t in backends[0].pipeline.ladder]
+    assert names == ["local", "partner", "erasure", "global", "objstore"]
+    levels = [t.level for t in backends[0].pipeline.ladder]
+    assert levels == sorted(levels) == [1, 2, 3, 4, 5]
+    assert backends[0].capabilities()["objstore"] is True
+
+
+@pytest.mark.parametrize("backend", ["fti", "scr", "veloc"])
+@pytest.mark.parametrize("kind", [CHK_FULL, CHK_DIFF, "INC"])
 @pytest.mark.parametrize("level", [1, 2, 3, 4])
 def test_store_crash_restart_ladder(tmp_path, backend, kind, level):
     """Store → simulated node crash → restart for every level × backend ×
-    kind; recovery comes from the expected ladder rung."""
+    store kind (FULL, a DIFF chain, an incremental store in two parts);
+    recovery comes from the expected ladder rung."""
     cluster, backends = _backends(tmp_path, backend)
     newest = 0
     for r, b in enumerate(backends):
-        b.tcl_store(_named(r), 1, level, CHK_FULL)
-        b.tcl_wait()
-        newest = 1
-        if kind == CHK_DIFF:
-            named2 = _named(r)
-            named2["w"][3] = -7.0
-            b.tcl_store(named2, 2, level, CHK_DIFF)
-            b.tcl_wait()
-            newest = 2
+        newest = _store(b, r, kind, level)
     victim = 1
     named, meta = backends[victim].engine.load_latest()
     assert meta["recovered_via"] == ("global" if level == 4 else "local")
@@ -91,6 +118,213 @@ def test_store_crash_restart_ladder(tmp_path, backend, kind, level):
     assert int(named["step"]) == victim and meta["id"] == newest
     for b in backends:
         b.tcl_finalize()
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_incremental_gets_level_redundancy(tmp_path, level):
+    """Level-2/3 incremental checkpoints are replicated/encoded at commit
+    and survive a node loss."""
+    cluster, backends = _backends(tmp_path, "fti")
+    for r, b in enumerate(backends):
+        inc = b.tcl_store_begin(5, level)
+        inc.add({"w": torch.full((64,), float(r))})
+        rep = inc.commit()
+        assert rep is not None and rep.level == level
+        b.tcl_wait()
+    cluster.kill_node(2)
+    got = backends[2].engine.load_latest()
+    assert got is not None
+    named, meta = got
+    assert named["w"][0] == 2.0
+    assert meta["incremental"] is True
+    assert meta["recovered_via"] == ("partner" if level == 2 else "erasure")
+
+
+def test_incremental_async_commit_composes(tmp_path):
+    """With a CP-dedicated thread, store_begin does not fence in-flight
+    stores, and commit runs Place→Commit asynchronously."""
+    cfg = CheckpointConfig(dir=str(tmp_path / "a"), backend="fti",
+                           dedicated_thread=True)
+    ctx = CheckpointContext(cfg)
+    ctx.store({"w": torch.arange(8.0)}, id=1, level=1)   # async, not waited
+    inc = ctx.store_begin(id=2, level=1)                 # no fence on 1
+    inc.add({"w": torch.arange(8.0) + 1})
+    assert inc.commit() is None                # async tail → report deferred
+    ctx.wait()
+    ctx.shutdown()
+    ctx2 = CheckpointContext(cfg)
+    got = ctx2.load({"w": torch.zeros(8)})
+    assert ctx2.restarted and torch.equal(got["w"], torch.arange(8.0) + 1)
+    ctx2.shutdown()
+
+
+def test_async_diff_chain_composes(tmp_path):
+    """Back-to-back DIFF stores on the CP thread keep a consistent digest
+    chain (Plan runs synchronously in submission order)."""
+    cfg = CheckpointConfig(dir=str(tmp_path / "d"), backend="fti",
+                           dedicated_thread=True, block_bytes=256,
+                           keep_last_full=2)
+    ctx = CheckpointContext(cfg)
+    x = torch.arange(4096, dtype=torch.float32)
+    ctx.store({"x": x}, id=1, level=1)                      # FULL
+    x[5] = -1.0                                             # in place
+    ctx.store({"x": x}, id=2, level=1, kind=CHK_DIFF)       # async DIFF
+    x[900] = -2.0
+    ctx.store({"x": x}, id=3, level=1, kind=CHK_DIFF)       # async DIFF
+    ctx.wait()
+    ctx.shutdown()
+    ctx2 = CheckpointContext(CheckpointConfig(dir=str(tmp_path / "d"),
+                                              backend="fti"))
+    got = ctx2.load({"x": torch.zeros(4096)})
+    assert float(got["x"][5]) == -1.0 and float(got["x"][900]) == -2.0
+    ctx2.shutdown()
+
+
+def test_full_digests_are_hashed_in_plan_on_the_calling_thread(
+        tmp_path, monkeypatch):
+    """The port's decision where the reference defers a FULL's digests to
+    the CP thread: Plan hashes every leaf of every store, FULL and DIFF,
+    on the calling thread before it returns (torch tensors change in
+    place, so the digests must describe the snapshot Plan took).  An
+    interleaved FULL/DIFF chain still commits real DIFF links that replay
+    every update."""
+    import threading
+
+    import repro_torch.core.diff as diff_mod
+    main = threading.get_ident()
+    hash_threads = []
+    real = diff_mod.ops.blockhash
+    monkeypatch.setattr(
+        diff_mod.ops, "blockhash",
+        lambda leaf, bb: hash_threads.append(threading.get_ident())
+        or real(leaf, bb))
+    cfg = CheckpointConfig(dir=str(tmp_path / "h"), backend="fti",
+                           dedicated_thread=True, block_bytes=256)
+    ctx = CheckpointContext(cfg)
+    x = torch.arange(4096, dtype=torch.float32)
+    ctx.store({"x": x}, id=1, level=1)                      # FULL, async
+    x[7] = -1.0
+    ctx.store({"x": x}, id=2, level=1, kind=CHK_DIFF)
+    x[2048] = -2.0
+    ctx.store({"x": x}, id=3, level=1)                      # FULL again
+    x[9] = -3.0
+    ctx.store({"x": x}, id=4, level=1, kind=CHK_DIFF)
+    ctx.wait()
+    ctx.shutdown()
+    assert hash_threads == [main] * 4
+    ctx2 = CheckpointContext(CheckpointConfig(dir=str(tmp_path / "h"),
+                                              backend="fti"))
+    named, meta = ctx2.tcl.backend.engine.load_latest()
+    assert meta["kind"] == CHK_DIFF and meta["id"] == 4
+    assert named["x"][7] == -1.0 and named["x"][2048] == -2.0
+    assert named["x"][9] == -3.0
+    ctx2.shutdown()
+
+
+def _break_local_tier(eng):
+    """A file where the checkpoint tree must go → the next write fails."""
+    shutil.rmtree(eng.local_root)
+    with open(eng.local_root, "w") as f:
+        f.write("not a dir")
+
+
+def _mend_local_tier(eng):
+    os.remove(eng.local_root)
+    os.makedirs(eng.local_root)
+
+
+def test_deferred_error_surfaces_before_digest_mutation(tmp_path):
+    """A failed async store raises at the next directive BEFORE that
+    directive's Plan advances the digest chain; after the error surfaced,
+    the context keeps working."""
+    cfg = CheckpointConfig(dir=str(tmp_path / "e"), backend="fti",
+                           dedicated_thread=True, block_bytes=256)
+    ctx = CheckpointContext(cfg)
+    eng = ctx.tcl.backend.engine
+    x = torch.arange(1024, dtype=torch.float32)
+    ctx.store({"x": x}, id=1, level=1)
+    ctx.wait()
+    _break_local_tier(eng)
+    y = x.clone()
+    y[0] = -1.0
+    ctx.store({"x": y}, id=2, level=1, kind=CHK_DIFF)
+    ctx.tcl.backend._cp.wait()              # let the failure land
+    digests_before = dict(eng.diff._digests)
+    y[1] = -2.0
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint"):
+        ctx.store({"x": y}, id=3, level=1, kind=CHK_DIFF)
+    assert all(np.array_equal(digests_before[k], v)
+               for k, v in eng.diff._digests.items())
+    _mend_local_tier(eng)
+    ctx.store({"x": x}, id=4, level=4)
+    ctx.wait()
+    inc = ctx.store_begin(id=5, level=1)
+    inc.add({"x": x})
+    inc.commit()
+    ctx.wait()
+    ctx.shutdown()
+
+
+def test_incremental_commit_retryable_after_deferred_error(tmp_path):
+    """A deferred error raised inside commit() leaves the store
+    uncommitted and retryable."""
+    cfg = CheckpointConfig(dir=str(tmp_path / "r"), backend="fti",
+                           dedicated_thread=True, block_bytes=256)
+    ctx = CheckpointContext(cfg)
+    eng = ctx.tcl.backend.engine
+    ctx.store({"x": torch.ones(16)}, id=1, level=1)
+    ctx.wait()
+    _break_local_tier(eng)
+    ctx.store({"x": torch.zeros(16)}, id=2, level=1)      # async fail
+    ctx.tcl.backend._cp.wait()
+    _mend_local_tier(eng)
+    inc = ctx.store_begin(id=3, level=1)
+    inc.add({"w": torch.ones(4)})
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint"):
+        inc.commit()
+    assert inc.commit() is None             # retry succeeds (async tail)
+    ctx.wait()
+    ctx.shutdown()
+
+
+def test_shutdown_surfaces_final_async_error(tmp_path):
+    """A failure in the very last async store does not vanish at
+    shutdown."""
+    ctx = CheckpointContext(CheckpointConfig(dir=str(tmp_path / "f"),
+                                             backend="fti",
+                                             dedicated_thread=True))
+    _break_local_tier(ctx.tcl.backend.engine)
+    ctx.store({"x": torch.ones(4)}, id=1, level=1)    # async, will fail
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint"):
+        ctx.shutdown()
+
+
+def test_config_dedicated_thread_reaches_veloc(tmp_path):
+    """dedicated_thread=False in the user config makes VeloC synchronous
+    too, not just FTI."""
+    ctx = CheckpointContext(CheckpointConfig(dir=str(tmp_path / "v"),
+                                             backend="veloc",
+                                             dedicated_thread=False))
+    assert ctx.tcl.backend._cp is None
+    rep = ctx.store({"x": torch.ones(8)}, id=1, level=1)
+    assert rep is not None and rep.kind == CHK_FULL    # sync → report now
+    ctx.shutdown()
+
+
+def test_backend_capabilities_and_shared_stacks(tmp_path):
+    """Backends declare capabilities and compose the shared tier stacks —
+    none re-implements placement."""
+    caps = {}
+    for name in ("fti", "scr", "veloc"):
+        b = make_backend(StorageConfig(root=str(tmp_path / name)),
+                         LocalComm(str(tmp_path / name / "nl")), name)
+        caps[name] = b.capabilities()
+        assert sorted(b.pipeline.stacks) == [1, 2, 3, 4]
+        assert [t.name for t in b.pipeline.stacks[3]] == ["local", "erasure"]
+        b.tcl_finalize()
+    assert caps["fti"]["diff"] and not caps["scr"]["diff"]
+    assert caps["veloc"]["dedicated_thread"]
+    assert not caps["scr"]["dedicated_thread"]
 
 
 def test_pending_parts_of_the_port_refuse_loudly(tmp_path):
