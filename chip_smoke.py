@@ -53,17 +53,14 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    after) must be two per layer and step.
 6. The rest of the main path, with the default ``CheckpointConfig``
    (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
-   same tinyllama-1.1b-shaped state: a FULL
+   same tinyllama-1.1b-shaped state (depth ``--layers``): a FULL
    L4 store, a sparse update, a DIFF L4 store (the second store's uploaded
    bytes against the first's); the node-local and global directories
    wiped, a fresh context restores from the object store alone, replaying
    the DIFF on the card, bit-exact.  Then an incremental store in two
    parts, a DIFF with the exact dirty-block count and a bit-exact restore;
    and one SCR FULL store and restart, bit-exact.  The CDC chunker's rate
-   on this host is measured on 256 MiB of random bytes.  Its depth is
-   ``--objstore-layers`` (default 4): its FULL L4 store runs the host's
-   CDC scan, as phase 7's two publishes do (``--layers`` where that is
-   fewer).
+   on this host is measured on 256 MiB of random bytes.
 7. Serving and checkpoint-as-deployment at full width: tinyllama-1.1b
    (22 layers, bf16 compute) serves a batch of 4 seeded prompts of 128
    tokens with a 2048-slot KV cache (184.5 MB), deterministic.  Run A
@@ -111,9 +108,6 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 OBJ_DIR = ROOT / "build" / "chip_smoke_objstore"
 SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
-#: phase 6's depth: its FULL L4 store spends ~30 s per GB in the host's CDC
-#: scan, and phase 7 publishes two 4.40 GB FULL trees through the same scan
-OBJSTORE_LAYERS = 4
 
 # H100 SXM rates the bounds divide by, at the card's maximum SM clock of
 # 1.98 GHz x 132 SMs.  HBM: NVIDIA's data sheet.  Integer: the data sheet
@@ -591,6 +585,34 @@ def check_kernels(torch, device, ops, ref, bh, dp):
         if not torch.equal(ops.as_u32_blocks(dst, BLOCK_BYTES)[0], want):
             fail("unpack_dirty_many of pack_dirty_many's rows does not "
                  "rebuild the blocks")
+    # the serve path's leaves (phase 7): a stacked bf16 KV-cache leaf and
+    # last_token hashed; the rows that one DIFF store makes dirty (the
+    # positions of SERVE_EVERY decode steps in both cache leaves, and
+    # last_token) packed in one launch, then scattered into a cold cache
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.models.zoo import build_model
+    meta = build_model(get_arch("tinyllama-1.1b")).cache_struct(
+        SERVE_BATCH, SERVE_MAX_LEN)
+    kv = [torch.randn(m.shape, generator=gen, device=device).to(m.dtype)
+          for m in flatten_named(meta).values()]
+    last = torch.randint(0, 32_000, (SERVE_BATCH, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    hash_case(f"serve cache leaf {tuple(kv[0].shape)} {kv[0].dtype}", kv[0])
+    hash_case(f"serve last_token {tuple(last.shape)}", last)
+    steps = range(SERVE_PROMPT, SERVE_PROMPT + SERVE_EVERY)
+    serve = [(x, np.asarray(cache_dirty_blocks(x, steps, BLOCK_BYTES),
+                            np.int32)) for x in kv]
+    serve.append((last, np.array([0], np.int32)))
+    pack_many_case(f"serve DIFF ({sum(len(i) for _, i in serve)} rows over "
+                   f"both cache leaves and last_token)", serve)
+    rows = dp.diffpack_many([x for x, _ in serve], [i for _, i in serve],
+                            BLOCK_BYTES)
+    cut = np.cumsum([0] + [len(i) for _, i in serve])
+    unpack_check("serve DIFF into a cold cache",
+                 [(torch.zeros_like(x), i, rows[a:b])
+                  for (x, i), a, b in zip(serve, cut[:-1], cut[1:])])
+    del kv, serve, rows
     try:
         dp.diffunpack_many([torch.zeros(64, 64, device=device).t()],
                            [np.zeros(1, np.int32)],
@@ -1265,7 +1287,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"256 KiB / 1 MiB / 4 MiB, {256 if on_card else 8} MiB of random "
         f"bytes)")
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    state = tinyllama_state(torch, args.objstore_layers, args.width_div,
+    state = tinyllama_state(torch, args.layers, args.width_div,
                             device, gen)
     sync(torch, device)
     named = flatten_named(state)
@@ -1274,7 +1296,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
-    log(f"[obj] state: {args.objstore_layers} of 22 layers, {len(named)} "
+    log(f"[obj] state: {args.layers} of 22 layers, {len(named)} "
         f"leaves, {nbytes / 1e9:.2f} GB on {device}")
 
     def want_dirty(ids):
@@ -1314,7 +1336,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         return got, seen["meta"], time.time() - t
 
     shutil.rmtree(OBJ_DIR, ignore_errors=True)
-    out = {"depth": args.objstore_layers, "cdc_mb_s": rate}
+    out = {"depth": args.layers, "cdc_mb_s": rate}
     ttrace.reset()
     ttrace.enable()
     ops.reset_launch_counts()
@@ -1457,10 +1479,10 @@ SERVE_GEN, SERVE_EVERY, SERVE_FAULT = 64, 16, 48
 SERVE_TUNED_TOKENS = 1024
 
 
-def cache_dirty_blocks(k, positions, block_bytes: int) -> int:
-    """Hash blocks of one stacked (n_groups, B, C, KV, dh) cache leaf that
-    the decode steps at ``positions`` wrote: one row of KV·dh elements per
-    (layer, sequence) slab and position."""
+def cache_dirty_blocks(k, positions, block_bytes: int) -> list:
+    """Hash blocks, sorted, of one stacked (n_groups, B, C, KV, dh) cache
+    leaf that the decode steps at ``positions`` wrote: one row of KV·dh
+    elements per (layer, sequence) slab and position."""
     n_groups, batch, c = k.shape[:3]
     row = k.shape[3] * k.shape[4] * k.element_size()
     out = set()
@@ -1469,7 +1491,7 @@ def cache_dirty_blocks(k, positions, block_bytes: int) -> int:
             lo = (slab * c + pos % c) * row
             out.update(range(lo // block_bytes,
                              (lo + row - 1) // block_bytes + 1))
-    return len(out)
+    return sorted(out)
 
 
 def serve_path(torch, args, device, ops) -> dict:
@@ -1576,7 +1598,7 @@ def serve_path(torch, args, device, ops) -> dict:
         st = store(CHK_DIFF)
         moved = int(not torch.equal(st.last_token, prev.last_token))
         want_dirty[int(st.pos)] = 1 + moved + sum(
-            cache_dirty_blocks(c, range(p0, p0 + every), bb)
+            len(cache_dirty_blocks(c, range(p0, p0 + every), bb))
             for c in flatten_named(st.caches).values())
         prev = st
     log(f"[serve] run B: fault after {fault} tokens (the engine and its "
@@ -1768,19 +1790,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--layers", type=int, default=22,
-                    help="decoder layers of phase 3 (a cut of depth; "
-                         "training and serving keep all 22)")
-    ap.add_argument("--objstore-layers", type=int, default=None,
-                    help=f"decoder layers of phase 6 (a cut of depth: its "
-                         f"FULL L4 store runs the host's CDC scan; default "
-                         f"{OBJSTORE_LAYERS}, or --layers if fewer)")
+                    help="decoder layers of phases 3 and 6 (a cut of "
+                         "depth; training and serving keep all 22)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
                     help="CPU rehearsal only: hash block size")
     args = ap.parse_args()
-    if args.objstore_layers is None:
-        args.objstore_layers = min(OBJSTORE_LAYERS, args.layers)
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))

@@ -9,7 +9,7 @@ restores are ROADMAP Queue 1, items 4–5.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 from repro_torch.core.formats import CHK5Reader, numpy_to_tensor
 
@@ -21,28 +21,20 @@ def split_sharded(named: Dict[str, Any]
     return dict(named), {}
 
 
-def load_named_onto(container: str, dirs: Sequence[str], rank: int = 0,
-                    devices: Any = None) -> Dict[str, Any]:
+def load_named_onto(container: str, dirs: Sequence[str], rank: int,
+                    devices: Mapping[str, Any]) -> Dict[str, Any]:
     """Load every leaf of a committed rank container onto its device — the
     serve-side loader.
 
     Plain ``data/`` leaves decode through the tier codec dispatch (int8
-    etc.) and are placed per ``devices``: a mapping ``name →
-    torch.device`` (missing names stay host numpy arrays), a single
-    device applied to every leaf, or ``None`` for an all-host load.  The
-    map stands in for the reference's shardings.  A container with
+    etc.) and are placed per ``devices``, a mapping ``name →
+    torch.device`` (missing names stay host numpy arrays) that stands in
+    for the reference's shardings.  A container with
     sharded leaves (``shardidx/``) raises ``NotImplementedError``: their
     shard files live in ``dirs`` and are read by the distributed part of
     the port, which this one does not have; it never loads a partial tree
     onto the host instead."""
     from repro_torch.core.tiers import decode_leaf   # tiers ⇄ resharding
-
-    def device_for(name: str):
-        if devices is None:
-            return None
-        if hasattr(devices, "get"):
-            return devices.get(name)
-        return devices
 
     named: Dict[str, Any] = {}
     rd = CHK5Reader(container)
@@ -58,7 +50,7 @@ def load_named_onto(container: str, dirs: Sequence[str], rank: int = 0,
                 continue
             name = ds[len("data/"):]
             arr = decode_leaf(rd, ds)
-            dev = device_for(name)
+            dev = devices.get(name)
             named[name] = arr if dev is None else numpy_to_tensor(arr, dev)
     finally:
         rd.close()

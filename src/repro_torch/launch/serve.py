@@ -120,8 +120,9 @@ def main(argv=None) -> int:
                 print(f"[serve] deploy pinned: {st['error']} "
                       f"(retrying with backoff)")
         out.append(eng.generate(1))
-        ckpt.store(eng.get_state(), id=int(eng.get_state().pos), level=1,
-                   if_=(i + 1) % 8 == 0)
+        if (i + 1) % 8 == 0:             # get_state copies the whole cache
+            st = eng.get_state()
+            ckpt.store(st, id=int(st.pos), level=1)
         if args.kill_after is not None and (i + 1) >= args.kill_after:
             ckpt.wait()
             print(f"[serve] simulated failure after {i + 1} tokens")
