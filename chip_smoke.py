@@ -82,12 +82,29 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    must match the leaves hashed, the DIFF stores packed and the links
    replayed.
 
+8. Chaos and elastic restore: the fault-scenario matrix (8 scenarios x 3
+   backends, ``repro_torch.chaos.scenarios``) with its payloads on the
+   card, 24/24 with no data loss and each cell's recovery path equal to
+   the CPU run's; the hash launches over it (reset before, read after)
+   must equal the card leaves of the FTI stores it planned.  A seeded
+   tinyllama-1.1b parameter state (202 leaves, 4.40 GB) is saved as 4
+   axis-0 rank files of a committed checkpoint and ``rescale_restore``
+   puts each rank's rows of new worlds 2 and 3 on the card, equal to the
+   source's; the same state is stored as a shard-local FULL (4 host
+   chunks per 2-D leaf, 4 shard files, FTI level 1) and a fresh context
+   restores it into zeros on the card, bit-exact; a newer sharded id that
+   lost a shard file makes the walk fall back to it and say so.  Last,
+   the supervised kill: ``launch.train --supervise`` workers train
+   tinyllama-1.1b at full width (flash attention) and are killed at step
+   8; the restart resumes from step 6, once, and ends at step 12.
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6 and 7 on the CPU with the plain versions (phases
-5 and 7 on a reduced config) and prints no result.
+rehearses phases 3, 5, 6, 7 and 8 on the CPU with the plain versions
+(phases 5, 7 and 8's supervised kill on a reduced config) and prints no
+result.
 """
 from __future__ import annotations
 
@@ -145,6 +162,21 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def written_gb() -> float:
+    """GB this process has written through ``write`` calls so far
+    (``wchar`` of ``/proc/self/io``; child processes not included), or -1.0
+    where the file is missing.  The machine that runs this script counts
+    every byte written to its disk against a limit, deleted or not."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1]) / 1e9
+    except OSError:
+        pass
+    return -1.0
 
 
 # --------------------------------------------------------------------------- #
@@ -1785,6 +1817,262 @@ def serve_path(torch, args, device, ops) -> dict:
     return launches
 
 # --------------------------------------------------------------------------- #
+# phase 8: the chaos matrix, elastic rescale and a sharded container
+# --------------------------------------------------------------------------- #
+
+CHAOS_DIR = ROOT / "build" / "chip_smoke_chaos"
+#: new world sizes of the elastic rescale; 3 splits the rows raggedly
+RESCALE_WORLDS = (2, 3)
+SHARDS = 4
+#: decoder layers of the supervised kill's workers on the card
+SUPERVISED_LAYERS = 2
+
+
+def chaos_path(torch, args, device, ops) -> dict:
+    """Phase 8.  (a) the scenario matrix on ``device`` (8 scenarios x 3
+    backends), each cell's recovery path equal to the CPU run's and the
+    hash launches equal to the card leaves its FTI stores planned; (b) a
+    tinyllama-1.1b state saved as 4 axis-0 rank files and rescaled onto new
+    worlds of 2 and 3 ranks, bit-exact; (c) the same state as a shard-local
+    FULL through the directives, restored into zeros on the device, and
+    the fall back past a newer id with a lost shard file; (d) the
+    supervised kill (full width on a card).  → {"launches": counts over
+    (a), and the numbers printed}."""
+    import warnings
+
+    from repro_torch.chaos.scenarios import run_matrix, run_scenario
+    from repro_torch.core import manifest as mf
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.formats import numpy_to_tensor, tensor_to_numpy
+    from repro_torch.core.pipeline import CheckpointPipeline, StoreRequest
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.core.resharding import (ShardChunk, ShardSnapshot,
+                                             save_sharded, shard_bounds)
+    from repro_torch.ft.elastic import rescale_restore
+
+    on_card = device.type == "cuda"
+    out: dict = {}
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+
+    # (a) the matrix: the CPU run first, then the device's with the hash
+    # launches counted from zero; the phase counts the leaves on the card
+    # of every store planned by a backend that keeps digests (FTI)
+    t = time.time()
+    if on_card:
+        cpu = run_matrix(str(CHAOS_DIR / "cpu"), device="cpu")
+    planned = {"stores": 0, "card_leaves": 0}
+    real_plan = CheckpointPipeline.plan
+
+    def counting_plan(self, req):
+        if req.diff_supported and req.named:
+            planned["stores"] += 1
+            planned["card_leaves"] += sum(
+                isinstance(v, torch.Tensor) and v.is_cuda
+                for v in req.named.values())
+        return real_plan(self, req)
+
+    sync(torch, device)
+    ops.reset_launch_counts()
+    CheckpointPipeline.plan = counting_plan
+    try:
+        report = run_matrix(str(CHAOS_DIR / "matrix"), device=device)
+    finally:
+        CheckpointPipeline.plan = real_plan
+    sync(torch, device)
+    out["launches"] = ops.launch_counts()
+    out["matrix_s"] = time.time() - t
+    if not on_card:
+        cpu = report
+    bad = [f"{c['name']}x{c['backend']}: {c['detail']}"
+           for c in report["scenarios"] if not c["ok"]]
+    if bad or report["passed"] != 24 or report["data_loss_bytes"] != 0:
+        fail(f"chaos matrix on {device}: {report['passed']}/"
+             f"{report['total']} passed, data loss "
+             f"{report['data_loss_bytes']} B; {bad[:3]}")
+    paths = {(c["name"], c["backend"]): c["recovery_path"]
+             for c in cpu["scenarios"]}
+    differ = [k for k in paths
+              if paths[k] != {(c["name"], c["backend"]): c["recovery_path"]
+                              for c in report["scenarios"]}.get(k)]
+    if differ:
+        fail(f"chaos matrix on {device}: recovery paths differ from the CPU "
+             f"run's in {differ}")
+    want = {"blockhash2": planned["card_leaves"], "diffpack": 0,
+            "diffunpack": 0, "flashattn": 0}
+    log(f"[chaos] matrix on {device}: {report['passed']}/{report['total']} "
+        f"passed, data loss {report['data_loss_bytes']} B, max mttr "
+        f"{report['max_mttr_s']} s, recovery paths equal the CPU run's; "
+        f"{out['matrix_s']:.1f} s with the CPU run")
+    log(f"[chaos] kernel launches over the matrix: {out['launches']} "
+        f"(expected on the card: {want}: {planned['card_leaves']} card "
+        f"leaves in {planned['stores']} FTI stores)")
+    if on_card and out["launches"] != want:
+        fail("phase 8 launch counts do not match the card leaves of the "
+             "matrix's stores")
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
+
+    # the state of (b) and (c): tinyllama-1.1b's parameters at full width
+    n_layers = 22 if on_card else args.layers
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    state = tinyllama_state(torch, n_layers, args.width_div, device, gen)
+    sync(torch, device)
+    named = flatten_named(state)
+    nbytes = sum(v.numel() * v.element_size() for v in named.values())
+    gb = nbytes / 1e9
+    log(f"[chaos] state: {n_layers} layers, {len(named)} leaves, {gb:.2f} "
+        f"GB on {device}")
+
+    # (b) elastic rescale: 4 rank files of axis-0 slices in a committed
+    # checkpoint, restored for new worlds of 2 and 3 ranks; a 0-d leaf
+    # travels as one row
+    root = str(CHAOS_DIR / "elastic")
+    rows = {k: (v.reshape(1) if v.dim() == 0 else v) for k, v in named.items()}
+    t = time.time()
+    d = mf.begin(root, 1)
+    for r in range(SHARDS):
+        sl, offs, shapes = {}, {}, {}
+        for k, v in rows.items():
+            lo, hi = shard_bounds(v.shape[0], SHARDS, r)
+            sl[k], offs[k], shapes[k] = v[lo:hi], lo, list(v.shape)
+        save_sharded(os.path.join(d, f"rank{r}.chk5"), sl, offs, shapes,
+                     {"world": SHARDS})
+    mf.write_manifest(root, 1, {"kind": "FULL", "level": 4,
+                                "world": SHARDS})
+    mf.commit(root, 1)
+    out["elastic_write_s"] = time.time() - t
+    log(f"[chaos] elastic: {SHARDS} rank files written in "
+        f"{out['elastic_write_s']:.2f} s "
+        f"({gb / out['elastic_write_s']:.2f} GB/s)")
+    for world in RESCALE_WORLDS:
+        secs = []
+        for rank in range(world):
+            t = time.time()
+            got = rescale_restore([root], world, rank)
+            if got is None or got[1] != 1:
+                fail(f"elastic: rescale_restore({world}, {rank}) found "
+                     f"{got and got[1]}")
+            placed = {k: numpy_to_tensor(a, device) for k, a in got[0].items()}
+            sync(torch, device)
+            secs.append(time.time() - t)
+            for k, v in rows.items():
+                lo, hi = shard_bounds(v.shape[0], world, rank)
+                if k not in placed or not torch.equal(placed[k], v[lo:hi]):
+                    fail(f"elastic: world {world} rank {rank}: {k} differs "
+                         f"from rows {lo}:{hi} of the source")
+            del placed, got
+        out[f"elastic_read_s_world{world}"] = secs
+        log(f"[chaos] elastic: new world {world}: every rank's rows on "
+            f"{device} equal the source's; read + place per rank "
+            + ", ".join(f"{s:.2f} s" for s in secs)
+            + f" ({gb / sum(secs):.2f} GB/s over the {world} ranks)")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
+
+    # (c) a shard-local FULL through the directives: 4 host chunks per 2-D
+    # leaf, 1-D and 0-d leaves as data/, shard_writers 4, FTI level 1
+    cfg = CheckpointConfig(dir=str(CHAOS_DIR / "sharded"), backend="fti",
+                           dedicated_thread=False, block_bytes=args.block_bytes)
+    host = {k: tensor_to_numpy(v) for k, v in named.items() if v.dim() == 2}
+
+    def store_sharded(ckpt_id: int, step) -> float:
+        ctx = CheckpointContext(cfg)
+        pipe = ctx.tcl.backend.pipeline
+        t0 = time.time()
+        plan = pipe.plan(StoreRequest(
+            named={k: (step if k == "step" else v)
+                   for k, v in named.items() if k not in host},
+            ckpt_id=ckpt_id, level=1))
+        plan.sharded = {}
+        for k, a in host.items():
+            chunks = []
+            for j in range(SHARDS):
+                lo, hi = shard_bounds(a.shape[0], SHARDS, j)
+                chunks.append(ShardChunk(offset=(lo, 0),
+                                         shape=(hi - lo, a.shape[1]),
+                                         data=a[lo:hi]))
+            plan.sharded[k] = ShardSnapshot(dtype=a.dtype.str,
+                                            global_shape=a.shape,
+                                            chunks=chunks)
+        rep = pipe.finish(plan)
+        secs = time.time() - t0
+        ctx.shutdown()
+        if rep.ckpt_id != ckpt_id or pipe.cfg.shard_writers != SHARDS:
+            fail(f"sharded store {ckpt_id}: report {rep}")
+        return secs
+
+    def restore():
+        template = unflatten_named(
+            {k: torch.zeros_like(v) for k, v in named.items()}, state)
+        sync(torch, device)
+        t0 = time.time()
+        ctx = CheckpointContext(cfg)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            got = ctx.load(template)
+        sync(torch, device)
+        secs = time.time() - t0
+        ctx.shutdown()
+        return got, secs, [str(w.message) for w in caught]
+
+    out["sharded_store_s"] = store_sharded(1, named["step"])
+    ck = Path(cfg.dir) / "node-local" / "ckpts" / "ckpt-1"
+    n_files = len(list(ck.glob("rank0.shard*.chk5")))
+    got, out["sharded_restore_s"], said = restore()
+    flat = flatten_named(got)
+    bad = [k for k, v in named.items()
+           if flat[k].device != v.device or not torch.equal(flat[k], v)]
+    if bad or n_files != SHARDS or said:
+        fail(f"sharded restore: {len(bad)} leaves differ ({bad[:3]}), "
+             f"{n_files} shard files, warnings {said[:2]}")
+    del got, flat
+    log(f"[chaos] sharded FULL: {len(host)} leaves in {SHARDS} chunks over "
+        f"{n_files} shard files + {len(named) - len(host)} data/ leaves, "
+        f"stored in {out['sharded_store_s']:.2f} s; a fresh context "
+        f"restores it into zeros on {device} bit-exact in "
+        f"{out['sharded_restore_s']:.2f} s")
+    # a newer sharded id (its step one on) loses a shard file
+    store_sharded(2, named["step"] + 1)
+    lost = Path(cfg.dir) / "node-local" / "ckpts" / "ckpt-2" / \
+        "rank0.shard1.chk5"
+    lost.unlink()
+    got, _secs, said = restore()
+    fell_back = torch.equal(flatten_named(got)["step"], named["step"])
+    del got
+    if not fell_back or not any("checkpoint 2: incomplete shard set" in m
+                                for m in said):
+        fail(f"lost shard file of id 2: restored step is id 2's or the walk "
+             f"did not say why it fell back ({said})")
+    log(f"[chaos] shard file {lost.name} of id 2 deleted: the walk fell back "
+        f"to id 1 and said: {said[0]}")
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
+    del state, named, rows, host
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) the supervised kill: worker processes on the device, tinyllama
+    # at full width on a card, the reduced config here
+    t = time.time()
+    layers = SUPERVISED_LAYERS if on_card else None
+    r = run_scenario("supervised-kill", "fti", str(CHAOS_DIR / "sup"),
+                     device=device, layers=layers)
+    out["supervised_s"] = time.time() - t
+    out["mttr_s"] = r.mttr_s
+    det = r.detail
+    if not (r.ok and det.get("resumed_from_step_6")
+            and det.get("exactly_one_restart") and det.get("backoff_paced")
+            and det.get("finished") and det.get("feed", {}).get("deaths") == 1):
+        fail(f"supervised kill on {device}: {det}")
+    log(f"[chaos] supervised kill ("
+        f"{f'full width, {layers} layers' if on_card else 'reduced'}"
+        f", {device}): resumed from step 6, one restart, backed off, "
+        f"finished at step 12, MTBF feed deaths 1; wall "
+        f"{out['supervised_s']:.1f} s, MTTR {r.mttr_s:.2f} s")
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    return out
+
+# --------------------------------------------------------------------------- #
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1815,6 +2103,7 @@ def main() -> None:
         training_path(torch, args, torch.device("cpu"), ops)
         objstore_path(torch, args, torch.device("cpu"), ops)
         serve_path(torch, args, torch.device("cpu"), ops)
+        chaos_path(torch, args, torch.device("cpu"), ops)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -1825,6 +2114,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"[env] {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1850,6 +2140,7 @@ def main() -> None:
     t = time.time()
     state, ids2, ids4, launches, _ = main_path(torch, args, device, ops)
     log(f"[phase] directive path: {time.time() - t:.1f} s")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
                          per_word)
@@ -1859,13 +2150,21 @@ def main() -> None:
     t = time.time()
     train = training_path(torch, args, device, ops)
     log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     obj = objstore_path(torch, args, device, ops)
     log(f"[phase] object store, incremental, SCR ({obj['depth']} of 22 "
         f"layers): {time.time() - t:.1f} s")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     serve_launches = serve_path(torch, args, device, ops)
     log(f"[phase] serve and deploy: {time.time() - t:.1f} s")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
+    t = time.time()
+    chaos = chaos_path(torch, args, device, ops)
+    log(f"[phase] chaos matrix, elastic and sharded restore, supervised "
+        f"kill: {time.time() - t:.1f} s")
+    log(f"[io] {written_gb():.2f} GB written by this process so far")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1878,7 +2177,8 @@ def main() -> None:
     # pack and the unpack, the training path (phase 5) for attention; every
     # path's own counts stand in launches_by_path
     paths = {"directive": launches, "training": train["launches"],
-             "objstore": obj["launches"], "serve": serve_launches}
+             "objstore": obj["launches"], "serve": serve_launches,
+             "chaos": chaos["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -1902,7 +2202,8 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "layers": args.layers if path == "directive" else 22,
             "layers_by_path": {"directive": args.layers, "training": 22,
-                               "objstore": obj["depth"], "serve": 22}})
+                               "objstore": obj["depth"], "serve": 22,
+                               "chaos": 22}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

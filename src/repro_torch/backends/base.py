@@ -153,11 +153,13 @@ class Backend(abc.ABC):
 
         Leaves come back as host numpy arrays, except the DIFF-replayed
         leaves of ``req.devices``, which come back as tensors on their
-        template's device; TCL puts the rest on their template leaf's
-        device."""
+        template's device, and sharded leaves, which come back as lazy
+        ``ShardedLeafRef`` handles; TCL puts the rest on their template
+        leaf's device."""
         self.tcl_wait()
         got = self.engine.load_latest(
-            devices=req.devices if req is not None else None)
+            devices=req.devices if req is not None else None,
+            lazy_sharded=True)
         if got is None:
             return None
         self.stats["loads"] += 1

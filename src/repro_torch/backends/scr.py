@@ -140,9 +140,10 @@ class SCRBackend(Backend):
         # read through the shared recovery ladder: codec datasets decode
         # roundtrip-verified (the native route-file restart path is
         # unchanged).  SCR stores no DIFF links, so every leaf comes back
-        # as a host array for TCL to place
+        # as a host array or a lazy sharded ref for TCL to place
         got = self.engine.load_latest(
-            devices=req.devices if req is not None else None)
+            devices=req.devices if req is not None else None,
+            lazy_sharded=True)
         if got is None:
             self.complete_restart(False)
             return None

@@ -27,8 +27,9 @@ Layout::
     [8B u64 index length][4B crc32(index)][8B magic tail "5KHC...."]
 
 Writers are append-only; readers are mmap-free (seek+read) so partial
-restores touch only the bytes they need. ``python -m repro.tools.chkls``
-pretty-prints any CHK5 file (the "use any HDF5 tool" analogue).
+restores touch only the bytes they need. ``python -m
+repro_torch.tools.chkls`` pretty-prints any CHK5 file (the "use any HDF5
+tool" analogue).
 """
 from __future__ import annotations
 
@@ -139,6 +140,15 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
         return t.numpy()
     name, int_t, _ = _VIA_INT[t.dtype]
     return t.view(int_t).numpy().view(_extra_np_dtype(name))
+
+
+def as_numpy(x: Any) -> np.ndarray:
+    """A host numpy array of ``x``: a tensor on any device becomes a host
+    copy (:func:`tensor_to_numpy`), anything else goes through
+    ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return tensor_to_numpy(x)
+    return np.asarray(x)
 
 
 def numpy_to_tensor(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:

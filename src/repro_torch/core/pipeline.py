@@ -70,7 +70,13 @@ from repro_torch.core.diff import (
 )
 from repro_torch.core.formats import CHK5Reader, CHK5Writer
 from repro_torch.core.protect import CHK_DIFF, CHK_FULL, Protect, to_host
-from repro_torch.core.resharding import split_sharded
+from repro_torch.core.resharding import (
+    ShardedLeafRef,
+    ShardSnapshot,
+    resolve_shard_refs,
+    split_sharded,
+    write_shard_files,
+)
 from repro_torch.core.tiers import (
     PackTier,
     Tier,
@@ -98,6 +104,7 @@ class StorageConfig:
     promote_threshold: float = 0.95            # diff→full break-even (Fig. 7)
     ranks_per_node: int = 1
     custom_groups: Optional[dict] = None       # SCR-style group overrides
+    shard_writers: int = 4                     # parallel shard-file writers
     # --- object-store L4 (repro_torch.objstore) ---------------------- #
     objstore: bool = True                      # compose ObjectStoreTier at L4
     objstore_url: Optional[str] = None         # None → file:<root>/objstore
@@ -195,6 +202,7 @@ class Plan:
     attrs: Dict[str, Any]                      # payload container attrs
     extra: Dict[str, Any]                      # caller meta → manifest
     named_host: Optional[Dict[str, np.ndarray]] = None   # FULL payload
+    sharded: Optional[Dict[str, ShardSnapshot]] = None   # shard-local FULL
     deltas: Optional[List[LeafDelta]] = None             # DIFF payload
     specs: Optional[Dict[str, Optional[Protect]]] = None  # clause specs
     dirty_ratio: Optional[float] = None
@@ -210,10 +218,13 @@ class Plan:
 
 @dataclass
 class Packed:
-    """A serialized payload sitting in the staging dir (output of Pack)."""
+    """A serialized payload sitting in the staging dir (output of Pack).
+    ``shard_files`` lists the sibling shard files of a sharded store —
+    the multi-file set commits atomically with the container."""
     stage_dir: str
     path: str
     nbytes: int
+    shard_files: List[str] = field(default_factory=list)
 
 
 class CheckpointPipeline:
@@ -391,6 +402,13 @@ class CheckpointPipeline:
         attrs, precision); DIFF deltas ship as compacted dirty blocks.  A
         mixed-kind plan writes both sections into one container.
 
+        Sharded leaves (``plan.sharded``) write their chunks as
+        ``shard-<k>`` sub-datasets spread over sibling
+        ``rank<r>.shard<j>.chk5`` files (parallel writers) and the shard
+        index into the main container — everything inside the same
+        ``.tmp`` staging dir, so the whole multi-file set commits
+        atomically.
+
         When a tier offers a Pack-stage chunk sink (``tier.pack_sink``),
         every container byte is teed into it as it is produced."""
         d = mf.begin(plan.root, plan.ckpt_id)
@@ -398,15 +416,28 @@ class CheckpointPipeline:
         attrs = dict(plan.attrs, level=plan.level, rank=self.comm.rank,
                      world=self.comm.world)
         sink = self._pack_sink(plan, os.path.basename(path))
+        shard_files: List[str] = []
         with CHK5Writer(path, sink=sink) as w:
             if plan.reuse_keys:
                 w.region_keys = dict(plan.reuse_keys)
-            w.set_attrs("", dict(attrs, kind=plan.kind))
+            root_attrs = dict(attrs, kind=plan.kind)
+            if plan.sharded:
+                root_attrs["sharded"] = True
+            w.set_attrs("", root_attrs)
+            if plan.sharded:
+                shard_files = write_shard_files(
+                    d, f"rank{self.comm.rank}", w, plan.sharded, plan.specs,
+                    default_kind=CHK_FULL,
+                    max_writers=self.cfg.shard_writers,
+                    sink_factory=lambda bn: self._pack_sink(plan, bn))
             if plan.named_host:
                 pack_named(w, plan.named_host, plan.specs, self.pack_tiers)
             if plan.deltas:
                 self._serialize_deltas(w, plan.deltas, plan.specs)
-        return Packed(stage_dir=d, path=path, nbytes=os.path.getsize(path))
+        nbytes = os.path.getsize(path) + sum(
+            os.path.getsize(p) for p in shard_files)
+        return Packed(stage_dir=d, path=path, nbytes=nbytes,
+                      shard_files=shard_files)
 
     def _pack_sink(self, plan: Plan, basename: str):
         """First streaming chunk sink any tier of this plan's stack offers
@@ -438,14 +469,16 @@ class CheckpointPipeline:
     # ------------------------------------------------------------------ #
 
     def place(self, plan: Plan, packed: Packed) -> None:
-        """Run the tier stack's redundancy over the packed payload."""
+        """Run the tier stack's redundancy over the packed payload (the
+        rank container plus any sibling shard files)."""
         for tier in plan.tiers:
             chaos.fire(chaos.SITES.TIER_PLACE, tier=tier.name,
                        level=plan.level, ckpt_id=plan.ckpt_id,
                        rank=self.comm.rank)
             with ttrace.span("pipeline.place", tier=tier.name,
                              level=plan.level, ckpt_id=plan.ckpt_id):
-                tier.place(plan.ckpt_id, packed.stage_dir, packed.path)
+                tier.place(plan.ckpt_id, packed.stage_dir, packed.path,
+                           extra_files=packed.shard_files)
 
     # ------------------------------------------------------------------ #
     # stage 4: Commit
@@ -467,9 +500,11 @@ class CheckpointPipeline:
         statuses = self.comm.allgather(
             {"rank": self.comm.rank, "ok": True,
              "file": os.path.basename(packed.path), "nbytes": packed.nbytes,
-             # the file set this rank staged (the JAX package lists its
-             # shard files here too; this port stages one container)
-             "files": [os.path.basename(packed.path)]})
+             # the full multi-file set this rank staged — the manifest
+             # covers shard files atomically (a partial set is detectable,
+             # and the restore path refuses it)
+             "files": [os.path.basename(packed.path)]
+             + [os.path.basename(p) for p in packed.shard_files]})
         mf.write_manifest(plan.root, plan.ckpt_id, {
             "kind": plan.kind, "level": plan.level, "world": self.comm.world,
             "group_size": self.topo.group_size,
@@ -515,6 +550,8 @@ class CheckpointPipeline:
         paths: List[str] = []
         if plan.named_host is not None:
             paths += list(plan.named_host)
+        if plan.sharded is not None:
+            paths += list(plan.sharded)
         if plan.deltas is not None:
             paths += [d.path for d in plan.deltas]
         return paths or plan.extra.get("parts", [])
@@ -656,7 +693,8 @@ class CheckpointPipeline:
         return None
 
     def load_latest(self, rank: Optional[int] = None,
-                    devices: Optional[Dict[str, Any]] = None
+                    devices: Optional[Dict[str, Any]] = None, *,
+                    lazy_sharded: bool = False
                     ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
         """Restore newest restorable checkpoint: FULL base + diff replay.
 
@@ -665,12 +703,19 @@ class CheckpointPipeline:
         each of those is placed on its device once, from its FULL base, and
         comes back as a tensor there with every delta scattered into it in
         place, one scatter per DIFF link and device for all such leaves (per
-        group of at most ``diff.MAX_PACK_BYTES`` of rows).  A checkpoint whose containers fail to read, parse or verify
-        — one holding sharded leaves (written by the JAX package's
-        shard-local store) too, which this port cannot restore yet — makes
-        the walk warn and fall back to an older id.  The replay on the
-        devices runs after that walk: an error there (a kernel that does
-        not build or launch, a device out of memory) is raised."""
+        group of at most ``diff.MAX_PACK_BYTES`` of rows).
+
+        Sharded leaves (``shardidx/``, written by either package's
+        shard-local store) restore from their shard files, found across the
+        id's recovery dirs (partner replicas included).  By default they
+        are materialized to host arrays; ``lazy_sharded=True`` returns
+        :class:`~repro_torch.core.resharding.ShardedLeafRef` handles
+        instead, which TCL reads onto the template leaf's device.  An
+        incomplete shard set, or containers that fail to read, parse or
+        verify, make the walk fall back to an older id (with a warning
+        for the latter).  The replay on the devices runs after that walk:
+        an error there (a kernel that does not build or launch, a device
+        out of memory) is raised."""
         rank = self.comm.rank if rank is None else rank
         by_id: Dict[int, List[str]] = {}
         for i, root in self.available_ids():
@@ -690,6 +735,10 @@ class CheckpointPipeline:
             if got is not None:
                 named, replay, meta = got
                 named.update(replay.run(devices))
+                if not lazy_sharded:
+                    named = {k: (v.materialize()
+                                 if isinstance(v, ShardedLeafRef) else v)
+                             for k, v in named.items()}
                 return named, meta
         return None
 
@@ -741,19 +790,29 @@ class CheckpointPipeline:
         replay = ChainReplay()                      # device replays, planned
         meta_shape: Dict[str, Tuple[str, List[int]]] = {}
         bb = None
-        for link, (blob, man, _root) in enumerate(chain):
+        for link, (blob, man, root) in enumerate(chain):
             bb = man.get("block_bytes", self.cfg.block_bytes)
             ckid = man.get("id", ckpt_id)
             rd = CHK5Reader(io.BytesIO(blob))
-            if any(ds.startswith("shardidx/") for ds in rd.datasets()):
-                rd.close()
-                raise NotImplementedError(
-                    f"checkpoint {ckid} holds sharded leaves; restoring "
-                    "shard files comes with the distributed part of the "
-                    "port")
             # one pass handles FULL, DIFF *and* mixed containers: a full
-            # dataset supersedes any older delta replay of the same leaf,
-            # a delta replays onto whatever base the chain built so far
+            # (or sharded) dataset supersedes any older delta replay of the
+            # same leaf, a delta replays onto whatever base the chain built
+            # so far.  Sharded leaves resolve their chunk files first: an
+            # incomplete shard set (crash-lost / pruned file) makes this
+            # checkpoint non-restorable and the walk falls back.
+            refs = resolve_shard_refs(
+                rd, self.ctx.recovery_dirs(root, ckid), rank)
+            if refs is None:
+                rd.close()
+                warnings.warn(
+                    f"checkpoint {ckid}: incomplete shard set (rank {rank}); "
+                    "falling back to older id", RuntimeWarning)
+                return None
+            for name, ref in refs.items():
+                named[name] = ref
+                flat_u32.pop(name, None)
+                replay.drop(name)
+                meta_shape.pop(name, None)
             for ds in rd.datasets():
                 if ds.startswith("data/"):
                     name = ds[len("data/"):]
@@ -769,6 +828,11 @@ class CheckpointPipeline:
                     if name not in flat_u32 and name not in replay:
                         if name not in named:
                             return None     # chain broken
+                        if isinstance(named[name], ShardedLeafRef):
+                            # delta replay needs the flat base: the one
+                            # path that materializes a sharded leaf (on the
+                            # host; ChainReplay places it on its device)
+                            named[name] = named[name].materialize()
                         if devices.get(name) is not None:
                             replay.start(name, named[name], bb)
                         else:

@@ -63,6 +63,10 @@ class StorageEngine:
     def local_root(self) -> str:
         return self.pipeline.local_root
 
+    def tier_root(self, level: int) -> str:
+        """Root dir of the write stack's primary tier for ``level``."""
+        return self.pipeline.tier_root(level)
+
     # ------------------------------------------------------------------ #
     # write path — Plan → Pack → Place → Commit, run synchronously
     # ------------------------------------------------------------------ #
@@ -84,12 +88,23 @@ class StorageEngine:
         return self.pipeline.available_ids()
 
     def load_latest(self, rank: Optional[int] = None,
-                    devices: Optional[Dict[str, Any]] = None
+                    devices: Optional[Dict[str, Any]] = None, *,
+                    lazy_sharded: bool = False
                     ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
         """Newest restorable checkpoint → (leaves, manifest).  Host numpy
         leaves, except the DIFF-replayed leaves named in ``devices``, which
-        come back as tensors on their device (pipeline.load_latest)."""
-        return self.pipeline.load_latest(rank, devices)
+        come back as tensors on their device, and, with ``lazy_sharded``,
+        sharded leaves as ``ShardedLeafRef`` handles
+        (pipeline.load_latest)."""
+        return self.pipeline.load_latest(rank, devices,
+                                         lazy_sharded=lazy_sharded)
+
+    def rank_payload(self, root: str, ckpt_id: int, rank: int
+                     ) -> Optional[bytes]:
+        """Fetch a rank payload via the recovery ladder (partner / erasure
+        fallback included)."""
+        got = self.pipeline.recover_payload(root, ckpt_id, rank)
+        return got[0] if got is not None else None
 
     def objstore_tier(self):
         """The composed L4 object-store tier (repro_torch.objstore), or None

@@ -18,7 +18,10 @@ template's dtype (a dtype that differs from the checkpoint's is an error,
 as in the JAX package).  Numpy and scalar template leaves restore as
 numpy arrays.  TCL hands the pipeline each tensor leaf's device
 (``LoadRequest.devices``), so a DIFF chain replays there; such a leaf
-comes back already on its device and is taken as it is.
+comes back already on its device and is taken as it is.  A sharded leaf
+(a ``ShardedLeafRef`` from a shard-file checkpoint) passes the same shape
+and dtype checks against the template, is read once into host memory and
+placed on the template leaf's device.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from repro_torch.backends.base import Backend
 from repro_torch.backends.registry import make_backend
 from repro_torch.core.comm import Communicator
-from repro_torch.core.formats import numpy_to_tensor
+from repro_torch.core.formats import dtype_to_str, numpy_to_tensor
 from repro_torch.core.pipeline import LoadRequest, StoreRequest
 from repro_torch.core.protect import (
     flatten_named,
@@ -39,6 +42,7 @@ from repro_torch.core.protect import (
     resolve_specs,
     unflatten_named,
 )
+from repro_torch.core.resharding import ShardedLeafRef
 from repro_torch.core.storage import CHK_FULL, StorageConfig, StoreReport
 
 
@@ -101,10 +105,15 @@ class TCL:
                 raise ValueError(
                     f"{path}: checkpoint shape {arr.shape} != "
                     f"template {tuple(np.shape(leaf))} (use elastic restore)")
-            if leaf_dtype_str(arr) != leaf_dtype_str(leaf):
+            got_dt = (dtype_to_str(arr.dtype)
+                      if isinstance(arr, ShardedLeafRef)
+                      else leaf_dtype_str(arr))
+            if got_dt != leaf_dtype_str(leaf):
                 raise TypeError(
-                    f"{path}: checkpoint dtype {leaf_dtype_str(arr)} != "
+                    f"{path}: checkpoint dtype {got_dt} != "
                     f"template {leaf_dtype_str(leaf)}")
+            if isinstance(arr, ShardedLeafRef):
+                arr = arr.materialize()      # one read into host memory
             # the counterpart of jax.device_put(arr, template sharding):
             # the template leaf's device is the target
             if isinstance(arr, torch.Tensor):

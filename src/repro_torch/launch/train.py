@@ -18,6 +18,7 @@ on the CPU; ``--full`` uses the published widths.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -46,6 +47,8 @@ def worker(args) -> int:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     state = init_train_state(params, prng_key(args.seed + 1),
@@ -141,6 +144,9 @@ def main() -> int:
     ap.add_argument("--differential", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: a reduced config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="decoder layers (a cut of depth at the config's "
+                         "widths; default: the config's)")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--no-dedicated-thread", action="store_true")
     ap.add_argument("--inject-at", type=float, default=None)

@@ -1,7 +1,6 @@
 """The torch mirror of tests/test_clause_store.py, on the port.  The
-container inventory is read with the reference's ``tools/chkls`` (not
-ported yet: ROADMAP Queue 1, item 4), which reads the port's CHK5 as its
-own.
+container inventory is read with the port's ``tools/chkls`` and with the
+reference's, which reads the port's CHK5 as its own; both must agree.
 
 Clause-driven stores end to end: per-subtree kind/compress/precision
 clauses through store → crash → restart on every backend, the Pack-side
@@ -16,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.tools.chkls import main as chkls_main
+from repro.tools.chkls import main as ref_chkls_main
 from repro_torch.core.context import (
     CHK_DIFF,
     CHK_FULL,
@@ -27,6 +26,7 @@ from repro_torch.core.context import (
 from repro_torch.core.formats import (CHK5CorruptionError, CHK5Reader,
                                       CHK5Writer)
 from repro_torch.core.tiers import decode_leaf, pack_named, unpack_named
+from repro_torch.tools.chkls import main as chkls_main
 
 
 def i32(v):
@@ -99,10 +99,14 @@ def test_clause_store_crash_restart_bit_exact(tmp_path, backend):
     # container inventory: codec attr on params datasets ONLY
     f = _ckpt_file(d, 1)
     import contextlib
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        assert chkls_main([f, "--json"]) == 0
-    inv = json.loads(buf.getvalue())
+    invs = []
+    for main in (chkls_main, ref_chkls_main):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main([f, "--json"]) == 0
+        invs.append(json.loads(buf.getvalue()))
+    inv, ref_inv = invs
+    assert inv == ref_inv                      # the two tools agree
     by_name = {ds["name"]: ds for ds in inv["datasets"]}
     for name, ds in by_name.items():
         if name.startswith("data/params/"):

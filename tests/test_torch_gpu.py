@@ -508,3 +508,110 @@ def test_fleet_swap_on_card_installs_the_published_tree(tmp_path):
     got, want = flatten_named(eng.params), flatten_named(pub)
     assert eng.weights.entry_id == 1
     assert all(got[k].is_cuda and torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.gpu
+def test_chaos_matrix_cell_on_card_hashes_its_card_leaves(tmp_path):
+    """One scenario cell with its payloads on the card: bit-exact, no loss,
+    and one hash launch per card leaf of each FTI store it planned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.chaos.scenarios import run_scenario
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    r = run_scenario("node-loss-mid-store", "fti", str(tmp_path),
+                     device="cuda")
+    torch.cuda.synchronize()
+    assert r.ok and r.data_loss_bytes == 0 and r.recovery_path == "partner"
+    # ids 1 and 2 on 4 ranks plus rank 3's torn id 3, 3 card leaves each
+    assert ops.launch_counts()["blockhash2"] == (4 + 4 + 1) * 3
+
+
+@pytest.mark.gpu
+def test_elastic_rescale_puts_each_new_ranks_rows_on_card(tmp_path):
+    """Phase 8 (b) at a small size: card leaves saved as 4 axis-0 rank
+    files of a committed checkpoint, rescaled onto worlds 2 and 3, each new
+    rank's rows on the card equal to the source's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import manifest as mf
+    from repro_torch.core.formats import numpy_to_tensor
+    from repro_torch.core.resharding import save_sharded, shard_bounds
+    from repro_torch.ft.elastic import rescale_restore
+    g = torch.Generator(device="cuda").manual_seed(3)
+    src = {"w": torch.randn(37, 64, generator=g, device="cuda"),
+           "b": torch.randn(37, generator=g, device="cuda").to(torch.bfloat16),
+           "n": torch.arange(9, device="cuda")}
+    root = str(tmp_path)
+    d = mf.begin(root, 1)
+    for r in range(4):
+        sl, offs, shapes = {}, {}, {}
+        for k, v in src.items():
+            lo, hi = shard_bounds(v.shape[0], 4, r)
+            sl[k], offs[k], shapes[k] = v[lo:hi], lo, list(v.shape)
+        save_sharded(os.path.join(d, f"rank{r}.chk5"), sl, offs, shapes)
+    mf.write_manifest(root, 1, {"kind": "FULL", "level": 4, "world": 4})
+    mf.commit(root, 1)
+    for world in (2, 3):
+        for rank in range(world):
+            named, ckpt_id = rescale_restore([root], world, rank)
+            assert ckpt_id == 1
+            for k, v in src.items():
+                lo, hi = shard_bounds(v.shape[0], world, rank)
+                got = numpy_to_tensor(named[k], "cuda")
+                assert got.dtype == v.dtype and torch.equal(got, v[lo:hi])
+
+
+@pytest.mark.gpu
+def test_sharded_container_restores_onto_card_through_the_directives(
+        tmp_path):
+    """Phase 8 (c) at a small size: a shard-local FULL (host chunks, 4
+    shard files) restores into a zeros template on the card bit-exact, and
+    a newer id that lost a shard file makes the walk fall back, saying so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import warnings
+
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.formats import tensor_to_numpy
+    from repro_torch.core.pipeline import StoreRequest
+    from repro_torch.core.resharding import (ShardChunk, ShardSnapshot,
+                                             shard_bounds)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    state = {"w": torch.randn(50, 32, generator=g, device="cuda"),
+             "n": torch.randn(32, generator=g, device="cuda"),
+             "step": torch.tensor(3, device="cuda")}
+    cfg = CheckpointConfig(dir=str(tmp_path), backend="fti",
+                           dedicated_thread=False)
+
+    def store(ckpt_id, step):
+        ctx = CheckpointContext(cfg)
+        pipe = ctx.tcl.backend.pipeline
+        plan = pipe.plan(StoreRequest(named={"n": state["n"], "step": step},
+                                      ckpt_id=ckpt_id, level=1))
+        a = tensor_to_numpy(state["w"])
+        plan.sharded = {"w": ShardSnapshot("<f4", a.shape, [
+            ShardChunk((lo, 0), (hi - lo, 32), a[lo:hi])
+            for lo, hi in (shard_bounds(50, 4, j) for j in range(4))])}
+        pipe.finish(plan)
+        ctx.shutdown()
+
+    def load():
+        ctx = CheckpointContext(cfg)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            got = ctx.load({k: torch.zeros_like(v) for k, v in state.items()})
+        ctx.shutdown()
+        return got, [str(w.message) for w in caught]
+
+    store(1, state["step"])
+    got, said = load()
+    assert not said
+    for k, v in state.items():
+        assert got[k].device == v.device and torch.equal(got[k], v)
+    store(2, state["step"] + 1)
+    os.remove(os.path.join(str(tmp_path), "node-local", "ckpts", "ckpt-2",
+                           "rank0.shard2.chk5"))
+    got, said = load()
+    assert int(got["step"]) == 3 and torch.equal(got["w"], state["w"])
+    assert any("checkpoint 2: incomplete shard set" in m for m in said)

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither jax nor any module
 of the JAX package ``repro``, and its main paths (directives, training,
-serving and deploy) run with jax absent — as ``chip_smoke.py`` drives
-them, which also refuses to run without a card."""
+serving and deploy, a chaos scenario cell and an elastic restore) run with
+jax absent — as ``chip_smoke.py`` drives them, which also refuses to run
+without a card."""
 import ast
 import os
 import subprocess
@@ -114,6 +115,23 @@ assert dep.run_until_converged()["action"] == "converged"
 assert eng.weights.entry_id == 1 and torch.equal(eng.params["embed"],
                                                   params["embed"])
 assert eng.generate(2).shape == (2, 2)
+# chaos: one scenario cell on the CPU, the CLI tools, an elastic restore
+import repro_torch.tools.chkls, repro_torch.tools.chktrace
+from repro_torch.chaos.scenarios import run_scenario
+from repro_torch.core import manifest as mf
+from repro_torch.core.resharding import save_sharded
+from repro_torch.ft.elastic import rescale_restore
+r = run_scenario("node-loss-mid-store", "fti", d + "/chaos", device="cpu")
+assert r.ok and r.data_loss_bytes == 0 and r.recovery_path == "partner"
+g = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+cd = mf.begin(d + "/el", 3)
+for k in range(2):
+    save_sharded(cd + f"/rank{k}.chk5", {"g": g[5 * k:5 * k + 5]},
+                 {"g": 5 * k}, {"g": [10, 4]})
+mf.write_manifest(d + "/el", 3, {"kind": "FULL", "level": 4})
+mf.commit(d + "/el", 3)
+el, cid = rescale_restore([d + "/el"], 3, 1)
+assert cid == 3 and el["g"].tobytes() == g[4:7].numpy().tobytes()
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 print("isolated-ok")
@@ -139,7 +157,9 @@ def test_no_module_of_the_port_imports_jax_or_repro():
             "core/incremental.py", "backends/scr.py", "objstore/tier.py",
             "objstore/cdc.py", "objstore/chunks.py", "objstore/subscriber.py",
             "serve/engine.py", "serve/deploy.py", "launch/serve.py",
-            "core/resharding.py"} <= scanned
+            "core/resharding.py", "chaos/scenarios.py", "chaos/runner.py",
+            "ft/elastic.py", "ft/straggler.py", "tools/chkls.py",
+            "tools/chktrace.py"} <= scanned
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -158,9 +178,11 @@ def test_no_module_of_the_port_imports_jax_or_repro():
 def test_chip_smoke_main_path_rehearses_on_cpu():
     """chip_smoke.py's main paths at a tiny width with the plain versions:
     the directive path (FULL, in-place update before the async tail, DIFF
-    with the exact dirty count, promoted FULL, DIFF, restart) and the
+    with the exact dirty count, promoted FULL, DIFF, restart), the
     checkpointed training (run A vs store, fault, restore, resume) on a
-    reduced config."""
+    reduced config, serving and deploy, and phase 8: the chaos matrix, the
+    elastic rescale, the sharded directive restore with its fall back, and
+    the supervised kill."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
          "--width-div", "16", "--block-bytes", "256"],
@@ -170,6 +192,11 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert "resumed TrainState equals run A's bit for bit" in out.stdout
     assert "final ServeState equal run A's bit for bit" in out.stdout
     assert "generates the 4 tokens of an engine built on" in out.stdout
+    assert "[chaos] matrix on cpu: 24/24 passed, data loss 0 B" in out.stdout
+    assert "new world 3: every rank's rows on cpu equal" in out.stdout
+    assert "restores it into zeros on cpu bit-exact" in out.stdout
+    assert "the walk fell back to id 1" in out.stdout
+    assert "resumed from step 6, one restart" in out.stdout
     assert '"ok"' not in out.stdout            # a CPU run prints no result
 
 

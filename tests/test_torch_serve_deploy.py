@@ -91,11 +91,13 @@ def test_inventory_shim_keeps_legacy_shape(tmp_path):
     eng = _engine(tmp_path)
     eng.store({"w": np.arange(4096, dtype=np.float32)}, ckpt_id=7, level=4)
     root = os.path.join(str(tmp_path / "shared"), "objstore")
-    # tools/chkls is not ported yet: the reference's reads the port's store
-    from repro.tools.chkls import catalog_inventory
+    # the port's chkls and the reference's read the port's store alike
+    from repro.tools.chkls import catalog_inventory as ref_catalog_inventory
+    from repro_torch.tools.chkls import catalog_inventory
     inv = catalog_inventory(root)
     view = CatalogView.from_root(root, count_chunks=True)
     assert inv == view.to_inventory(root)
+    assert ref_catalog_inventory(root) == inv
     e = inv["entries"][0]
     assert e["id"] == 7 and e["kind"] == "FULL"
     assert set(e) == {"id", "pinned", "kind", "level", "wall_time", "files",
