@@ -20,7 +20,8 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
    not, and at S 256, and its grouped entry against
    ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
-   heads), at dh 128, H/KV 1 and 8, Sk ≠ S: bf16 within one bf16 ulp of
+   heads), at dh 128, H/KV 1 and 8, Sk ≠ S, and at the supervised kill
+   workers' shape (B 2, S 32, 32 heads over 4): bf16 within one bf16 ulp of
    the output and two launches bit-equal, f32 within 2e-5, and the
    autograd gradient (kernel forward, plain backward) within 1e-4 of
    autograd through the plain version, in f32.
@@ -95,8 +96,10 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    restores it into zeros on the card, bit-exact; a newer sharded id that
    lost a shard file makes the walk fall back to it and say so.  Last,
    the supervised kill: ``launch.train --supervise`` workers train
-   tinyllama-1.1b at full width (flash attention) and are killed at step
-   8; the restart resumes from step 6, once, and ends at step 12.
+   tinyllama-1.1b at full width (22 layers, flash attention, each FULL
+   kept until the next commits) and are killed at step 8; the restart
+   resumes from step 6, once, and ends at step 12, and its flash launches
+   (written by the worker) must be two per layer and step it trained.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
@@ -162,21 +165,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def written_gb() -> float:
-    """GB this process has written through ``write`` calls so far
-    (``wchar`` of ``/proc/self/io``; child processes not included), or -1.0
-    where the file is missing.  The machine that runs this script counts
-    every byte written to its disk against a limit, deleted or not."""
-    try:
-        with open("/proc/self/io") as f:
-            for line in f:
-                if line.startswith("wchar:"):
-                    return int(line.split()[1]) / 1e9
-    except OSError:
-        pass
-    return -1.0
 
 
 # --------------------------------------------------------------------------- #
@@ -670,10 +658,11 @@ def bf16_tolerance(torch, x):
 #: (B, S, H, dh) of the training path's attention, and a short sequence
 FLASH_SHAPES = ((4, 2048, 32, 64), (4, 256, 32, 64))
 #: (B, S, Sk, H, KV, dh) of the grouped entry: the training path's shape,
-#: dh 128 with H/KV 8 and 1, and Sk != S
+#: dh 128 with H/KV 8 and 1, Sk != S, and the supervised kill's workers'
+#: shape (phase 8 (d)), whose 32 rows are under one 128-row tile
 GQA_SHAPES = ((4, 2048, 2048, 32, 4, 64), (2, 1024, 1024, 16, 2, 128),
               (2, 512, 512, 8, 8, 128), (2, 512, 1536, 8, 1, 64),
-              (2, 1024, 256, 8, 8, 32))
+              (2, 1024, 256, 8, 8, 32), (2, 32, 32, 32, 4, 64))
 
 
 def check_flash(torch, device, ops, ref, fa) -> float:
@@ -1824,8 +1813,8 @@ CHAOS_DIR = ROOT / "build" / "chip_smoke_chaos"
 #: new world sizes of the elastic rescale; 3 splits the rows raggedly
 RESCALE_WORLDS = (2, 3)
 SHARDS = 4
-#: decoder layers of the supervised kill's workers on the card
-SUPERVISED_LAYERS = 2
+#: steps the restarted worker of the supervised kill trains (6 to 12)
+RESUMED_STEPS = 6
 
 
 def chaos_path(torch, args, device, ops) -> dict:
@@ -1910,7 +1899,6 @@ def chaos_path(torch, args, device, ops) -> dict:
         fail("phase 8 launch counts do not match the card leaves of the "
              "matrix's stores")
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
 
     # the state of (b) and (c): tinyllama-1.1b's parameters at full width
     n_layers = 22 if on_card else args.layers
@@ -1967,7 +1955,6 @@ def chaos_path(torch, args, device, ops) -> dict:
             + ", ".join(f"{s:.2f} s" for s in secs)
             + f" ({gb / sum(secs):.2f} GB/s over the {world} ranks)")
     shutil.rmtree(root, ignore_errors=True)
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
 
     # (c) a shard-local FULL through the directives: 4 host chunks per 2-D
     # leaf, 1-D and 0-d leaves as data/, shard_writers 4, FTI level 1
@@ -2046,29 +2033,41 @@ def chaos_path(torch, args, device, ops) -> dict:
     log(f"[chaos] shard file {lost.name} of id 2 deleted: the walk fell back "
         f"to id 1 and said: {said[0]}")
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     del state, named, rows, host
     if on_card:
         torch.cuda.empty_cache()
 
     # (d) the supervised kill: worker processes on the device, tinyllama
-    # at full width on a card, the reduced config here
+    # at full width on a card, the reduced config here.  The restarted
+    # worker writes its launches: flash runs forward and in the remat
+    # recompute of every layer, each of the 6 steps it trains
+    from repro_torch.configs import get_arch
+    cfg = get_arch("tinyllama-1.1b")
+    if not on_card:
+        cfg = cfg.reduced()
     t = time.time()
-    layers = SUPERVISED_LAYERS if on_card else None
     r = run_scenario("supervised-kill", "fti", str(CHAOS_DIR / "sup"),
-                     device=device, layers=layers)
+                     device=device)
     out["supervised_s"] = time.time() - t
     out["mttr_s"] = r.mttr_s
+    out["supervised_layers"] = cfg.n_layers
     det = r.detail
     if not (r.ok and det.get("resumed_from_step_6")
             and det.get("exactly_one_restart") and det.get("backoff_paced")
             and det.get("finished") and det.get("feed", {}).get("deaths") == 1):
         fail(f"supervised kill on {device}: {det}")
-    log(f"[chaos] supervised kill ("
-        f"{f'full width, {layers} layers' if on_card else 'reduced'}"
-        f", {device}): resumed from step 6, one restart, backed off, "
-        f"finished at step 12, MTBF feed deaths 1; wall "
-        f"{out['supervised_s']:.1f} s, MTTR {r.mttr_s:.2f} s")
+    want_flash = 2 * cfg.n_layers * RESUMED_STEPS if on_card else 0
+    got = det["worker_launches"]
+    if len(got) != 1 or got[0]["flashattn"] != want_flash or \
+            got[0]["diffpack"] or got[0]["diffunpack"]:
+        fail(f"supervised kill: the restarted worker's launches {got}, "
+             f"expected flashattn {want_flash} and no diffpack/diffunpack")
+    out["worker_launches"] = got[0]
+    log(f"[chaos] supervised kill ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {device}): resumed from step 6, one restart, backed "
+        f"off, finished at step 12, MTBF feed deaths 1; wall "
+        f"{out['supervised_s']:.1f} s, MTTR {r.mttr_s:.2f} s; the restarted "
+        f"worker's launches {got[0]} (flashattn expected {want_flash})")
     shutil.rmtree(CHAOS_DIR, ignore_errors=True)
     return out
 
@@ -2114,7 +2113,6 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"[env] {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2140,7 +2138,6 @@ def main() -> None:
     t = time.time()
     state, ids2, ids4, launches, _ = main_path(torch, args, device, ops)
     log(f"[phase] directive path: {time.time() - t:.1f} s")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
                          per_word)
@@ -2150,21 +2147,17 @@ def main() -> None:
     t = time.time()
     train = training_path(torch, args, device, ops)
     log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     obj = objstore_path(torch, args, device, ops)
     log(f"[phase] object store, incremental, SCR ({obj['depth']} of 22 "
         f"layers): {time.time() - t:.1f} s")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     serve_launches = serve_path(torch, args, device, ops)
     log(f"[phase] serve and deploy: {time.time() - t:.1f} s")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
     t = time.time()
     chaos = chaos_path(torch, args, device, ops)
     log(f"[phase] chaos matrix, elastic and sharded restore, supervised "
         f"kill: {time.time() - t:.1f} s")
-    log(f"[io] {written_gb():.2f} GB written by this process so far")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2178,7 +2171,8 @@ def main() -> None:
     # path's own counts stand in launches_by_path
     paths = {"directive": launches, "training": train["launches"],
              "objstore": obj["launches"], "serve": serve_launches,
-             "chaos": chaos["launches"]}
+             "chaos": chaos["launches"],
+             "supervised": chaos["worker_launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2203,7 +2197,8 @@ def main() -> None:
             "layers": args.layers if path == "directive" else 22,
             "layers_by_path": {"directive": args.layers, "training": 22,
                                "objstore": obj["depth"], "serve": 22,
-                               "chaos": 22}})
+                               "chaos": None,
+                               "supervised": chaos["supervised_layers"]}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

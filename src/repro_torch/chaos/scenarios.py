@@ -594,8 +594,7 @@ def heartbeat_loss_mid_gc(workdir: str, backend: str, device) -> ScenarioResult:
 
 # -- supervised multi-process scenario ---------------------------------------
 @scenario("supervised-kill", table=SUPERVISED)
-def supervised_kill(workdir: str, backend: str, device,
-                    layers: Optional[int] = None) -> ScenarioResult:
+def supervised_kill(workdir: str, backend: str, device) -> ScenarioResult:
     """Real kill/restart supervision: spawn ``launch/train.py --supervise``
     with an ``OPENCHK_CHAOS`` exit spec that hard-kills the worker at step
     8 (checkpoints at 3 and 6).  Asserts kill-detect → backoff → resume
@@ -605,7 +604,10 @@ def supervised_kill(workdir: str, backend: str, device,
 
     The workers train on ``device``: the reduced config on the CPU, the
     published widths (``--full``) with the flash attention kernel on a
-    card; ``layers`` cuts the depth (``launch.train --layers``)."""
+    card.  There each FULL is kept only until the next one commits
+    (``--keep-last-full 1``), so the disk holds at most two of them.  The
+    finishing worker's kernel launches come back in
+    ``detail["worker_launches"]``."""
     ckpt_dir = os.path.join(workdir, "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
     import repro_torch
@@ -624,11 +626,10 @@ def supervised_kill(workdir: str, backend: str, device,
            "--ckpt-dir", ckpt_dir, "--restart-backoff", "0.2",
            "--restart-backoff-max", "1.0", "--backend", backend,
            "--device", torch.device(device).type]
+    cmd.append("--launch-counts")
     if on_card:
-        cmd.append("--full")
+        cmd += ["--full", "--keep-last-full", "1"]
         env["REPRO_ATTN_IMPL"] = "flash"
-    if layers:
-        cmd += ["--layers", str(layers)]
     t0 = time.time()
     p = subprocess.run(cmd, env=env, capture_output=True, text=True,
                        timeout=900)
@@ -656,6 +657,11 @@ def supervised_kill(workdir: str, backend: str, device,
                and feed.get("estimate_s", 1e18) < 3600.0
                and len(feed.get("mttr_s") or []) == 1)
     mttr = (feed.get("mttr_s") or [dt])[0]
+    launches = []
+    for name in sorted(os.listdir(ckpt_dir)):
+        if name.startswith("launches-") and name.endswith(".json"):
+            with open(os.path.join(ckpt_dir, name), encoding="utf-8") as f:
+                launches.append(json.load(f))
     ok = (p.returncode == 0 and resumed and restarted_once and backed_off
           and finished and fired_total == 1 and feed_ok)
     return ScenarioResult(
@@ -666,7 +672,8 @@ def supervised_kill(workdir: str, backend: str, device,
         detail={"returncode": p.returncode, "resumed_from_step_6": resumed,
                 "exactly_one_restart": restarted_once,
                 "backoff_paced": backed_off, "finished": finished,
-                "state_fired": fired_total, "feed": feed})
+                "state_fired": fired_total, "feed": feed,
+                "worker_launches": launches})
 
 
 def check_device(device) -> torch.device:
@@ -681,11 +688,10 @@ def check_device(device) -> torch.device:
 
 def run_scenario(name: str, backend: str, workdir: str,
                  trace_dir: Optional[str] = None,
-                 device: Any = "cuda", **options) -> ScenarioResult:
+                 device: Any = "cuda") -> ScenarioResult:
     """Run one scenario with a clean chaos registry, always disarming.
 
-    The payloads live on ``device`` (:func:`check_device`); ``options``
-    go to the scenario (``layers`` of ``supervised-kill``).
+    The payloads live on ``device`` (:func:`check_device`).
 
     With *trace_dir*, the cell runs traced: this process records into
     ``<trace_dir>/<name>-<backend>/trace-<pid>.json``, spawned supervised
@@ -711,7 +717,7 @@ def run_scenario(name: str, backend: str, workdir: str,
         ttrace.enable(os.path.join(raw_dir, f"trace-{os.getpid()}.json"))
     try:
         fn = SCENARIOS.get(name) or SUPERVISED[name]
-        result = fn(workdir, backend, device, **options)
+        result = fn(workdir, backend, device)
     except Exception as e:  # a crashed scenario is a failed scenario
         result = ScenarioResult(
             name, backend, False,

@@ -8,9 +8,11 @@ Modes:
                worker resumes from the last checkpoint via ``ctx.load`` — the
                paper's §6.1 methodology end to end)
 
-The PyTorch counterpart of ``repro.launch.train``, with its flags and
-``--device``.  The default device is ``cuda``: without a card the command
-raises unless it gets ``--device cpu``.  On a card every op runs
+The PyTorch counterpart of ``repro.launch.train``, with its flags,
+``--device``, ``--keep-last-full`` (the FULLs each tier keeps) and
+``--launch-counts`` (the worker's kernel launches, written when it
+ends).  The default device is ``cuda``: without a card the command raises
+unless it gets ``--device cpu``.  On a card every op runs
 deterministically (``train.step.use_deterministic_algorithms``), so a
 resumed run ends bit-equal to an uninterrupted one.  Reduced configs run
 on the CPU; ``--full`` uses the published widths.
@@ -18,7 +20,7 @@ on the CPU; ``--full`` uses the published widths.
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import json
 import os
 import sys
 
@@ -47,8 +49,6 @@ def worker(args) -> int:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     state = init_train_state(params, prng_key(args.seed + 1),
@@ -59,6 +59,7 @@ def worker(args) -> int:
 
     ckpt = CheckpointContext(CheckpointConfig(
         dir=args.ckpt_dir, backend=args.backend,
+        keep_last_full=args.keep_last_full,
         dedicated_thread=not args.no_dedicated_thread))
 
     inject_at = args.inject_at if args.inject_at else should_inject_from_env()
@@ -91,6 +92,11 @@ def worker(args) -> int:
         ckpt.shutdown()
     brief = {k: v for k, v in summary.items() if k != "state"}
     print(f"[train] done: {brief}")
+    if args.launch_counts:
+        from repro_torch.kernels.ops import launch_counts
+        path = os.path.join(args.ckpt_dir, f"launches-{os.getpid()}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(launch_counts(), f)
     return 0
 
 
@@ -144,9 +150,12 @@ def main() -> int:
     ap.add_argument("--differential", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: a reduced config)")
-    ap.add_argument("--layers", type=int, default=None,
-                    help="decoder layers (a cut of depth at the config's "
-                         "widths; default: the config's)")
+    ap.add_argument("--keep-last-full", type=int, default=2,
+                    help="committed FULL checkpoints kept on each tier "
+                         "(older ids and their DIFF chains are deleted)")
+    ap.add_argument("--launch-counts", action="store_true",
+                    help="when training ends, write this process's kernel "
+                         "launches to <ckpt-dir>/launches-<pid>.json")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--no-dedicated-thread", action="store_true")
     ap.add_argument("--inject-at", type=float, default=None)

@@ -197,6 +197,7 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert "restores it into zeros on cpu bit-exact" in out.stdout
     assert "the walk fell back to id 1" in out.stdout
     assert "resumed from step 6, one restart" in out.stdout
+    assert "the restarted worker's launches" in out.stdout
     assert '"ok"' not in out.stdout            # a CPU run prints no result
 
 

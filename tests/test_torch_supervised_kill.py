@@ -13,3 +13,6 @@ def test_supervised_kill_scenario_end_to_end(tmp_path):
     assert r.detail["exactly_one_restart"] and r.detail["backoff_paced"]
     assert r.detail["feed"]["deaths"] == 1
     assert r.data_loss_bytes == 0 and r.mttr_s > 0
+    # the finishing worker wrote its kernel launches: none on the CPU
+    assert r.detail["worker_launches"] == [
+        {"blockhash2": 0, "diffpack": 0, "diffunpack": 0, "flashattn": 0}]

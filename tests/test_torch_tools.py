@@ -101,3 +101,25 @@ def test_launch_train_worker_restart(tmp_path):
     assert r2.returncode == 0, r2.stderr[-1000:]
     assert "restart detected" in r2.stdout
     assert "'final_step': 20" in r2.stdout
+
+
+def test_launch_train_keep_last_full_and_launch_counts(tmp_path):
+    """``--keep-last-full 1`` leaves only the newest committed FULL on the
+    node-local tier; ``--launch-counts`` writes the worker's kernel
+    launches (none on the CPU) into the checkpoint dir."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    d = tmp_path / "t"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--arch", "tinyllama-1.1b", "--steps", "9", "--batch", "2", "--seq",
+         "32", "--ckpt-every", "3", "--ckpt-dir", str(d),
+         "--no-dedicated-thread", "--keep-last-full", "1", "--launch-counts"],
+        env=env, capture_output=True, text=True, timeout=420)
+    assert r.returncode == 0, r.stderr[-1000:]
+    ckpts = d / "node-local" / "ckpts"
+    assert sorted(p.name for p in ckpts.glob("ckpt-*")) == ["ckpt-9"]
+    counts = [json.loads(p.read_text()) for p in d.glob("launches-*.json")]
+    assert counts == [{"blockhash2": 0, "diffpack": 0, "diffunpack": 0,
+                       "flashattn": 0}]
