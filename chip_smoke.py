@@ -20,8 +20,10 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
    not, and at S 256, and its grouped entry against
    ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
-   heads), at dh 128, H/KV 1 and 8, Sk ≠ S, and at the supervised kill
-   workers' shape (B 2, S 32, 32 heads over 4): bf16 within one bf16 ulp of
+   heads), at the MoE training shape (B 4, S 2048, 24 heads over 8 KV
+   heads: a group of 3), at dh 128, H/KV 1 and 8, Sk ≠ S, and at the
+   supervised kill workers' shape (B 2, S 32, 32 heads over 4): bf16
+   within one bf16 ulp of
    the output and two launches bit-equal, f32 within 2e-5, and the
    autograd gradient (kernel forward, plain backward) within 1e-4 of
    autograd through the plain version, in f32.
@@ -43,18 +45,24 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    computing the same function, beside the bound: the larger of bytes over
    3.35 TB/s and the operations (the busiest integer pipe or the
    instruction dispatch rate, counted in the SASS of the hash as built;
-   the attention's FLOPs over the dense bf16 peak).
+   the attention's FLOPs over the dense bf16 peak), the attention at the
+   training shape and at the MoE training shape.
 5. Checkpointed training at full width: tinyllama-1.1b's TrainState
    (13.2 GB: params, mu, nu in f32) with ``REPRO_ATTN_IMPL=flash``, batch
    4 × 2048 tokens, remat, FTI level 1 with a CP-dedicated thread, in
-   deterministic mode.  Run A: 3 steps, no store.  Run B: 3 steps, a FULL
-   store at step 2 and an injected fault at step 3; a fresh context
-   restores and runs step 3.  Both final states must be equal bit for bit
-   and the loss finite; the flash kernel's launches (reset before, read
-   after) must be two per layer and step.
+   deterministic mode, functional steps.  Run A: 3 steps, no store; each
+   leaf's SHA-256.  Run B, from the same seed: a FULL store at step 2 and
+   an injected fault at step 3; the faulted state is freed, a fresh
+   context restores into a template that holds no device memory and runs
+   step 3.  Its leaves' SHA-256 must equal run A's and the loss be
+   finite; the kernels' launches (reset before, read after): flash two
+   per layer and step, blockhash2 one per card leaf of the FULL, diffpack
+   and diffunpack none.
 6. The rest of the main path, with the default ``CheckpointConfig``
    (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
-   same tinyllama-1.1b-shaped state (depth ``--layers``): a FULL
+   same tinyllama-1.1b-shaped state (depth ``--layers``, at most 4 of 22:
+   its FULL L4's single-threaded CDC scan is cut for the time phase 9
+   takes): a FULL
    L4 store, a sparse update, a DIFF L4 store (the second store's uploaded
    bytes against the first's); the node-local and global directories
    wiped, a fresh context restores from the object store alone, replaying
@@ -101,13 +109,23 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    resumes from step 6, once, and ends at step 12, and its flash launches
    (written by the worker) must be two per layer and step it trained.
 
+9. Checkpointed MoE training at full width: granite-moe-3b-a800m
+   (hf:ibm-granite/granite-3.0-1b-a400m-base: 32 layers, d_model 1536,
+   24 heads / 8 KV heads of 64, 40 experts of d_ff 512, top-8, capacity
+   factor 1.5, groups of 256, einsum dispatch, tied embed, vocab 49155;
+   no cut), its TrainState of 39.6 GB (params, mu, nu in f32; 36 leaves
+   on the card), bf16 compute, run as phase 5 with donated steps (the
+   parameters and moments updated in place, as the launcher does), with
+   the same checks; the profiled step also reports the MoE dispatch and
+   combine einsums' device time.
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6, 7 and 8 on the CPU with the plain versions
-(phases 5, 7 and 8's supervised kill on a reduced config) and prints no
-result.
+rehearses phases 3, 5, 6, 7, 8 and 9 on the CPU with the plain versions
+(phases 5, 7, 9 and 8's supervised kill on a reduced config) and prints
+no result.
 """
 from __future__ import annotations
 
@@ -156,6 +174,9 @@ _ALU_PIPE_OPS = {"IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
 
 BLOCK_BYTES = 65_536
 SEED = 0
+#: phase 6's depth: its FULL L4's CDC scan is single-threaded numpy
+#: (~155 s at 22 layers on an H100 host), cut for the time phase 9 takes
+OBJSTORE_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -658,11 +679,15 @@ def bf16_tolerance(torch, x):
 #: (B, S, H, dh) of the training path's attention, and a short sequence
 FLASH_SHAPES = ((4, 2048, 32, 64), (4, 256, 32, 64))
 #: (B, S, Sk, H, KV, dh) of the grouped entry: the training path's shape,
-#: dh 128 with H/KV 8 and 1, Sk != S, and the supervised kill's workers'
-#: shape (phase 8 (d)), whose 32 rows are under one 128-row tile
-GQA_SHAPES = ((4, 2048, 2048, 32, 4, 64), (2, 1024, 1024, 16, 2, 128),
-              (2, 512, 512, 8, 8, 128), (2, 512, 1536, 8, 1, 64),
-              (2, 1024, 256, 8, 8, 32), (2, 32, 32, 32, 4, 64))
+#: the MoE training path's (phase 9: 24 heads over 8, a group of 3, the
+#: first that is not a power of two), dh 128 with H/KV 8 and 1, Sk != S,
+#: and the supervised kill's workers' shape (phase 8 (d)), whose 32 rows
+#: are under one 128-row tile
+GQA_SHAPES = ((4, 2048, 2048, 32, 4, 64), (4, 2048, 2048, 24, 8, 64),
+              (2, 1024, 1024, 16, 2, 128), (2, 512, 512, 8, 8, 128),
+              (2, 512, 1536, 8, 1, 64), (2, 1024, 256, 8, 8, 32),
+              (2, 32, 32, 32, 4, 64))
+MOE_GQA_SHAPE = GQA_SHAPES[1]
 
 
 def check_flash(torch, device, ops, ref, fa) -> float:
@@ -961,15 +986,15 @@ def time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp, per_word):
     return out
 
 
-def time_flash(torch, device, ref, fa) -> dict:
-    """flashattn's grouped entry at the training path's shape (bf16, 32
-    heads over 4 KV heads, causal and not) beside its bound, its plain
-    version and scaled_dot_product_attention on the same grouped inputs
-    (``enable_gqa=True``, or KV repeated to 32 heads where this torch lacks
-    the argument)."""
+def time_flash(torch, device, ref, fa, shape) -> dict:
+    """flashattn's grouped entry at a training path's ``shape`` (bf16,
+    causal and not) beside its bound, its plain version and
+    scaled_dot_product_attention on the same grouped inputs
+    (``enable_gqa=True``, or KV repeated to H heads where this torch lacks
+    the argument).  → the causal numbers."""
     import torch.nn.functional as F
 
-    b, s, sk, h, kv, dh = GQA_SHAPES[0]
+    b, s, sk, h, kv, dh = shape
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     q = torch.randn(b, s, h, dh, generator=gen, device=device).bfloat16()
     k, v = (torch.randn(b, sk, kv, dh, generator=gen, device=device)
@@ -1006,7 +1031,8 @@ def time_flash(torch, device, ref, fa) -> dict:
             f"causal={causal}: {flops:.4g} FLOPs, {moved} B; library: "
             f"scaled_dot_product_attention with "
             f"{'enable_gqa=True' if grouped else 'KV repeated to H heads'}")
-        log(f"[time] flashattn grouped causal={causal}: {ms:.4f} ms (bound "
+        log(f"[time] flashattn grouped B{b} S{s} H{h}/KV{kv} dh{dh} "
+            f"causal={causal}: {ms:.4f} ms (bound "
             f"{times[by]:.4f} ms by {by}: {flops:.4g} FLOPs at 989 TFLOP/s "
             f"{times['operations']:.4f} ms, {moved} B at 3.35 TB/s "
             f"{times['bytes']:.4f} ms; plain {plain:.4f} ms; "
@@ -1018,10 +1044,15 @@ def time_flash(torch, device, ref, fa) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phase 5: checkpointed training at full width
+# phases 5 and 9: checkpointed training at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_DIR = ROOT / "build" / "chip_smoke_moe"
+#: record_function ranges of models/moe.py whose device time phase 9's
+#: profile reports
+MOE_RANGES = ("moe.dispatch_einsum", "moe.combine_einsum")
 
 
 def sync(torch, device) -> None:
@@ -1041,10 +1072,12 @@ _KERNEL_GROUPS = (
 )
 
 
-def profile_step(torch, step) -> None:
+def profile_step(torch, step, ranges=()) -> None:
     """One more step (of training, or of decode) under ``torch.profiler``:
     device time by kernel group and the device's idle share of the step.
-    Prints that no device time was recorded if the profiler sees none."""
+    Prints that no device time was recorded if the profiler sees none.
+    ``ranges``: ``record_function`` names whose device time (the kernels
+    launched inside them, which their groups also count) is printed too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1054,8 +1087,14 @@ def profile_step(torch, step) -> None:
         step()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    groups, top = {}, []
+    groups, top, ranged = {}, [], {}
+    for ev in prof.events():             # each range: its kernels' time
+        if ev.name in ranges and str(ev.device_type).endswith("CPU"):
+            ranged[ev.name] = ranged.get(ev.name, 0.0) + \
+                ev.device_time_total / 1e3
     for ev in prof.key_averages():
+        if ev.key in ranges:             # the range's span on the card
+            continue
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue                     # an operator, not a kernel
         dev = getattr(ev, "self_device_time_total",
@@ -1076,21 +1115,73 @@ def profile_step(torch, step) -> None:
         f"kernels, idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
     for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"[profile]   {g}: {ms:.1f} ms ({ms / busy:.1%})")
+    for name in ranges:
+        ms = ranged.get(name, 0.0)
+        log(f"[profile]   range {name} (forward and remat recompute; its "
+            f"backward is in the groups above): "
+            + (f"{ms:.1f} ms ({ms / busy:.1%})" if ms else "not measured"))
     for ms, n, key in sorted(top, reverse=True)[:10]:
         log(f"[profile]   kernel {ms:.1f} ms x{n}: {key}")
 
 
-def training_path(torch, args, device, ops) -> dict:
-    """Run A: TRAIN_STEPS steps, no store.  Run B: a FULL store at step 2,
-    an injected fault at step 3, then a fresh context restores and runs
-    step 3.  The final TrainStates must be equal bit for bit."""
-    import numpy as np
+def state_digests(torch, state) -> dict:
+    """{leaf path: (dtype, shape, device, SHA-256 of its bytes)}.  A card
+    leaf is copied into one pinned host buffer, one leaf at a time; its
+    bytes are hashed in 64 MiB pieces on 8 threads, and the leaf's digest
+    is the SHA-256 of the pieces' digests.  No kernel of the port runs."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.protect import flatten_named
+
+    named = flatten_named(state)
+    on_card = [v for v in named.values() if v.is_cuda]
+    staging = torch.empty(max(v.numel() * v.element_size() for v in on_card),
+                          dtype=torch.uint8, pin_memory=True) \
+        if on_card else None
+    piece = 64 << 20
+    out = {}
+    with ThreadPoolExecutor(8) as pool:
+        for k, v in named.items():
+            n = v.numel() * v.element_size()
+            flat = v.detach().reshape(-1).view(torch.uint8)
+            if v.is_cuda:
+                staging[:n].copy_(flat)
+                host = memoryview(staging[:n].numpy())
+            else:
+                host = memoryview(flat.contiguous().numpy())
+            parts = pool.map(lambda a: hashlib.sha256(host[a:a + piece])
+                             .digest(), range(0, n, piece))
+            out[k] = (str(v.dtype), tuple(v.shape), str(v.device),
+                      hashlib.sha256(b"".join(parts)).hexdigest())
+    del staging
+    return out
+
+
+def host_mem_total() -> int:
+    """The host's MemTotal in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo", encoding="ascii") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
+                  donate: bool = False, ranges=()) -> dict:
+    """Phases 5 and 9.  Run A: TRAIN_STEPS steps, no store; each leaf's
+    SHA-256.  Run B, from the same seed: a FULL store at step 2, an
+    injected fault at step 3; the faulted state is freed, and a fresh
+    context restores into a template that holds no device memory and runs
+    step 3.  Its leaves' SHA-256 must equal run A's.  ``donate``: the
+    steps update the state in place (the launcher's step); ``ranges``:
+    ``record_function`` ranges the profiled step reports."""
+    import gc
 
     from repro_torch.configs import get_arch
     from repro_torch.core.context import CheckpointConfig, CheckpointContext
-    from repro_torch.core.formats import tensor_to_numpy
-    from repro_torch.core.protect import flatten_named
-    from repro_torch.data.synthetic import init_data_state
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.data.synthetic import init_data_state, next_batch
     from repro_torch.ft.failures import FaultInjector, SimulatedFault
     from repro_torch.kernels import flashattn as fa
     from repro_torch.models.zoo import build_model
@@ -1101,7 +1192,7 @@ def training_path(torch, args, device, ops) -> dict:
                                         use_deterministic_algorithms)
 
     on_card = device.type == "cuda"
-    cfg, batch, seq = get_arch("tinyllama-1.1b"), TRAIN_BATCH, TRAIN_SEQ
+    cfg, batch, seq = get_arch(arch), TRAIN_BATCH, TRAIN_SEQ
     if not on_card:                                  # the CPU rehearsal
         cfg, batch, seq = cfg.reduced(), 2, 64
     os.environ["REPRO_ATTN_IMPL"] = "flash"
@@ -1110,23 +1201,15 @@ def training_path(torch, args, device, ops) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
-    t = time.time()
-    state0 = init_train_state(
-        model.init(torch.Generator(device=device).manual_seed(SEED)),
-        prng_key(SEED + 1), init_data_state(SEED))
-    sync(torch, device)
-    named0 = flatten_named(state0)
-    nbytes = sum(x.numel() * x.element_size() for x in named0.values())
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"TrainState {len(named0)} leaves, {nbytes / 1e9:.2f} GB on {device}, "
-        f"made in {time.time() - t:.1f} s; batch {batch} x {seq}, remat, "
-        f"REPRO_ATTN_IMPL=flash")
-    del named0
     step_fn = make_train_step(
         model, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1),
-        remat=True)
+        remat=True, donate=donate)
+
+    def fresh_state():
+        return init_train_state(
+            model.init(torch.Generator(device=device).manual_seed(SEED)),
+            prng_key(SEED + 1), init_data_state(SEED))
+
     steps = []
 
     def timed(run):
@@ -1136,35 +1219,72 @@ def training_path(torch, args, device, ops) -> dict:
             new, met = step_fn(state, b)
             sync(torch, device)
             steps.append((run, int(new.step), time.time() - t0,
-                          fa.LAUNCHES.n - n0, float(met["loss"])))
+                          fa.LAUNCHES.n - n0, float(met["loss"]),
+                          float(met["aux"])))
             return new, met
         return step
 
     def ctx_cfg(name):
-        return CheckpointConfig(dir=str(TRAIN_DIR / name), backend="fti",
+        return CheckpointConfig(dir=str(root / name), backend="fti",
                                 dedicated_thread=True, objstore=False)
 
     def quiet(*_):
         pass
 
     levels = LevelSchedule(l2_every=0, l3_every=0, l4_every=0)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
     ops.reset_launch_counts()
 
     # run A: straight through, no store
+    t = time.time()
+    state = fresh_state()
+    sync(torch, device)
+    made_s = time.time() - t
+    named = flatten_named(state)
+    nbytes = sum(x.numel() * x.element_size() for x in named.values())
+    n_card = sum(x.device == device for x in named.values())
+    largest = max(named, key=lambda k: named[k].numel())
+    m = cfg.moe
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, "
+        + (f"{m.n_experts} experts of d_ff {cfg.d_ff}, top-{m.top_k}, "
+           f"capacity factor {m.capacity_factor}, group {m.group_size}, "
+           f"{m.dispatch} dispatch, " if m else f"d_ff {cfg.d_ff}, ")
+        + f"vocab {cfg.vocab_size}"
+        + (", tied embed" if cfg.tie_embeddings else "")
+        + f"; TrainState {len(named)} leaves ({n_card} on {device}), "
+        f"{nbytes / 1e9:.2f} GB, largest {largest} "
+        f"{tuple(named[largest].shape)}; made in {made_s:.1f} s; batch "
+        f"{batch} x {seq}, remat, REPRO_ATTN_IMPL=flash, "
+        f"{'donated' if donate else 'functional'} steps; host MemTotal "
+        f"{host_mem_total() / 1e9:.1f} GB")
+    del named
     ctx = CheckpointContext(ctx_cfg("a"))
-    out = run_training(model, timed("A"), state0, ctx, LoopConfig(
+    out = run_training(model, timed("A"), state, ctx, LoopConfig(
         total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, levels=levels),
         batch, seq, log=quiet)
     ctx.shutdown()
-    named_a = flatten_named(out["state"])
-    final_a = {k: tensor_to_numpy(v) for k, v in named_a.items()}
-    device_a = {k: v.device for k, v in named_a.items()}
-    del named_a
+    if donate and out["state"].params["embed"] is not state.params["embed"]:
+        fail("run A: the donated step did not keep the state's tensors")
+    t = time.time()
+    want = state_digests(torch, out["state"])
+    digest_s = time.time() - t
     loss_a = out["loss"]
-    del out
+    del out, state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
 
-    # run B: FULL store at step 2, fault at step 3, restore, step 3
+    # run B: the same seed; FULL store at step 2, fault at step 3
+    state = fresh_state()
+    # the restore's template: the state's structure, shapes, dtypes and
+    # devices; its card leaves are one-element views (stride 0)
+    template = unflatten_named(
+        {k: (v.new_empty(()).expand(v.shape) if v.is_cuda else v.clone())
+         for k, v in flatten_named(state).items()}, state)
+    free_disk = shutil.disk_usage(root).free
     loop_b = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=2, levels=levels)
     reports, blocked = [], {}
     ctx = CheckpointContext(ctx_cfg("b")).observe_store_reports(
@@ -1180,10 +1300,10 @@ def training_path(torch, args, device, ops) -> dict:
 
     ctx.store = timed_store
     try:
-        run_training(model, timed("B"), state0, ctx, loop_b, batch, seq,
+        run_training(model, timed("B"), state, ctx, loop_b, batch, seq,
                      injector=FaultInjector(TRAIN_STEPS, 1.0), log=quiet)
     except SimulatedFault as e:
-        log(f"[train] run B: {e}")
+        log(f"[{tag}] run B: {e}")
     else:
         fail("run B: the injected fault did not fire")
     t = time.time()
@@ -1192,10 +1312,22 @@ def training_path(torch, args, device, ops) -> dict:
     if [r.ckpt_id for r in reports] != [2]:
         fail(f"run B committed stores {[r.ckpt_id for r in reports]} != [2]")
     r = reports[0]
-    log(f"[train] store 2: kind={r.kind} bytes_payload={r.bytes_payload} "
+    log(f"[{tag}] store 2 (free disk before it {free_disk / 1e9:.1f} GB): "
+        f"kind={r.kind} bytes_payload={r.bytes_payload} "
         f"plan_s={r.plan_seconds:.4f} store_call_s={blocked[2]:.4f} "
         f"total_s={r.seconds:.4f} (shutdown waited {drain_s:.2f} s for the "
         f"tail)")
+    # the faulted state goes before the restore allocates the restored one
+    del state, ctx, store
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        if left > 1e9:
+            fail(f"{left / 1e9:.2f} GB still allocated on the card after "
+                 f"the faulted state was freed")
+        log(f"[{tag}] faulted state freed: {left / 1e6:.1f} MB allocated on "
+            f"the card before the restore")
 
     ctx = CheckpointContext(ctx_cfg("b"))
     load, restore = ctx.load, {}
@@ -1208,19 +1340,21 @@ def training_path(torch, args, device, ops) -> dict:
         return got
 
     ctx.load = timed_load
-    out = run_training(model, timed("B restarted"), state0, ctx, loop_b,
+    out = run_training(model, timed("B restarted"), template, ctx, loop_b,
                        batch, seq, log=quiet)
     ctx.shutdown()
     launches = ops.launch_counts()
+    shutil.rmtree(root, ignore_errors=True)       # the FULL
     if not out["restarted"]:
         fail("run B's restart found no checkpoint")
-    log(f"[train] restore: {restore['s']:.2f} s (fresh context, FULL of "
-        f"{r.bytes_payload} B onto {device})")
+    log(f"[{tag}] restore: {restore['s']:.2f} s (fresh context, FULL of "
+        f"{r.bytes_payload} B into a template on {device} that holds no "
+        f"device memory)")
 
-    for run, step, sec, n, loss in steps:
-        log(f"[train] run {run} step {step}: {sec:.3f} s, "
+    for run, step, sec, n, loss, aux in steps:
+        log(f"[{tag}] run {run} step {step}: {sec:.3f} s, "
             f"{batch * seq / sec:.0f} tokens/s, flash launches {n}, "
-            f"loss {loss:.6f}")
+            f"loss {loss:.6f}" + (f" (router aux {aux:.6f})" if m else ""))
     want_per_step = 2 * cfg.n_layers          # forward + remat recompute
     if not all(math.isfinite(x[4]) for x in steps):
         fail("a training loss is not finite")
@@ -1229,37 +1363,36 @@ def training_path(torch, args, device, ops) -> dict:
                                    ("B restarted", 3)]:
         fail(f"unexpected step sequence {[x[:2] for x in steps]}")
     if on_card and (any(x[3] != want_per_step for x in steps) or
-                    launches["flashattn"] != want_per_step * len(steps)):
-        fail(f"flash launches {launches['flashattn']} (per step "
-             f"{[x[3] for x in steps]}) != {want_per_step} per step")
-
-    bad = []
-    for k, v in flatten_named(out["state"]).items():
-        got = tensor_to_numpy(v)
-        if (v.device != device_a[k] or got.dtype != final_a[k].dtype
-                or not np.array_equal(got.reshape(-1).view(np.uint8),
-                                      final_a[k].reshape(-1).view(np.uint8))):
-            bad.append(k)
-    if bad:
+                    launches["flashattn"] != want_per_step * len(steps) or
+                    launches["blockhash2"] != n_card or
+                    launches["diffpack"] or launches["diffunpack"]):
+        fail(f"{tag} launches {launches} (flash per step "
+             f"{[x[3] for x in steps]}): expected flashattn "
+             f"{want_per_step} per step, blockhash2 {n_card} (one FULL of "
+             f"the card leaves), no diffpack or diffunpack")
+    t = time.time()
+    got = state_digests(torch, out["state"])
+    bad = [k for k in want if got.get(k) != want[k]]
+    if bad or list(got) != list(want):
         fail(f"resumed TrainState differs from run A: {bad[:5]}")
     if out["loss"] != loss_a:
         fail(f"resumed loss {out['loss']} != run A's {loss_a}")
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    log(f"[{tag}] resumed TrainState equals run A's bit for bit "
+        f"({len(want)} leaves, SHA-256 of each leaf's bytes, {digest_s:.1f} "
+        f"+ {time.time() - t:.1f} s; step {int(out['state'].step)}, loss "
+        f"{loss_a:.6f}); kernel launches {launches}; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB (TrainState {nbytes / 1e9:.2f} GB)")
     if on_card:
-        from repro_torch.data.synthetic import next_batch
         b, _ = next_batch(out["state"].data_state, cfg, batch, seq, device)
-        profile_step(torch, lambda: step_fn(out["state"], b))
-    log(f"[train] resumed TrainState equals run A's bit for bit "
-        f"({len(final_a)} leaves, step {int(out['state'].step)}, loss "
-        f"{loss_a:.6f}); kernel launches {launches}; "
-        f"max_memory_allocated {peak / 1e9:.2f} GB")
-    del out, final_a, state0
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        profile_step(torch, lambda: step_fn(out["state"], b), ranges=ranges)
+    del out, template
+    gc.collect()
     if on_card:
         torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
     return {"launches": launches, "steps": steps, "restore_s": restore["s"],
-            "report": r, "peak_bytes": peak}
+            "report": r, "peak_bytes": peak, "layers": cfg.n_layers}
 
 
 # --------------------------------------------------------------------------- #
@@ -1308,8 +1441,8 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"256 KiB / 1 MiB / 4 MiB, {256 if on_card else 8} MiB of random "
         f"bytes)")
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    state = tinyllama_state(torch, args.layers, args.width_div,
-                            device, gen)
+    depth = min(args.layers, OBJSTORE_LAYERS)
+    state = tinyllama_state(torch, depth, args.width_div, device, gen)
     sync(torch, device)
     named = flatten_named(state)
     nbytes = sum(t.numel() * t.element_size() for t in named.values())
@@ -1317,7 +1450,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
     norm_blocks = sum(n_blocks(n, bb) for n in norms_of(state))
-    log(f"[obj] state: {args.layers} of 22 layers, {len(named)} "
+    log(f"[obj] state: {depth} of 22 layers, {len(named)} "
         f"leaves, {nbytes / 1e9:.2f} GB on {device}")
 
     def want_dirty(ids):
@@ -1357,7 +1490,7 @@ def objstore_path(torch, args, device, ops) -> dict:
         return got, seen["meta"], time.time() - t
 
     shutil.rmtree(OBJ_DIR, ignore_errors=True)
-    out = {"depth": args.layers, "cdc_mb_s": rate}
+    out = {"depth": depth, "cdc_mb_s": rate}
     ttrace.reset()
     ttrace.enable()
     ops.reset_launch_counts()
@@ -2077,8 +2210,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--layers", type=int, default=22,
-                    help="decoder layers of phases 3 and 6 (a cut of "
-                         "depth; training and serving keep all 22)")
+                    help="decoder layers of phases 3 and 6, phase 6 at most "
+                         f"{OBJSTORE_LAYERS} (a cut of depth; training and "
+                         "serving keep all 22)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
@@ -2099,10 +2233,13 @@ def main() -> None:
 
     if args.device == "cpu":
         main_path(torch, args, torch.device("cpu"), ops)
-        training_path(torch, args, torch.device("cpu"), ops)
+        training_path(torch, args, torch.device("cpu"), ops,
+                      "tinyllama-1.1b", "train", TRAIN_DIR)
         objstore_path(torch, args, torch.device("cpu"), ops)
         serve_path(torch, args, torch.device("cpu"), ops)
         chaos_path(torch, args, torch.device("cpu"), ops)
+        training_path(torch, args, torch.device("cpu"), ops, MOE_ARCH, "moe",
+                      MOE_DIR, donate=True)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -2141,11 +2278,14 @@ def main() -> None:
     t = time.time()
     times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
                          per_word)
-    times["flashattn"] = time_flash(torch, device, ref, fa)
+    times["flashattn"] = time_flash(torch, device, ref, fa, GQA_SHAPES[0])
+    times["flashattn"]["at_moe_shape"] = time_flash(torch, device, ref, fa,
+                                                    MOE_GQA_SHAPE)
     log(f"[phase] timing: {time.time() - t:.1f} s")
     del state
     t = time.time()
-    train = training_path(torch, args, device, ops)
+    train = training_path(torch, args, device, ops, "tinyllama-1.1b",
+                          "train", TRAIN_DIR)
     log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
     t = time.time()
     obj = objstore_path(torch, args, device, ops)
@@ -2158,6 +2298,10 @@ def main() -> None:
     chaos = chaos_path(torch, args, device, ops)
     log(f"[phase] chaos matrix, elastic and sharded restore, supervised "
         f"kill: {time.time() - t:.1f} s")
+    t = time.time()
+    moe = training_path(torch, args, device, ops, MOE_ARCH, "moe", MOE_DIR,
+                        donate=True, ranges=MOE_RANGES)
+    log(f"[phase] checkpointed MoE training: {time.time() - t:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2172,7 +2316,8 @@ def main() -> None:
     paths = {"directive": launches, "training": train["launches"],
              "objstore": obj["launches"], "serve": serve_launches,
              "chaos": chaos["launches"],
-             "supervised": chaos["worker_launches"]}
+             "supervised": chaos["worker_launches"],
+             "moe": moe["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2198,7 +2343,10 @@ def main() -> None:
             "layers_by_path": {"directive": args.layers, "training": 22,
                                "objstore": obj["depth"], "serve": 22,
                                "chaos": None,
-                               "supervised": chaos["supervised_layers"]}})
+                               "supervised": chaos["supervised_layers"],
+                               "moe": moe["layers"]}})
+        if "at_moe_shape" in r:          # flashattn at phase 9's shape
+            kernels[-1]["at_moe_shape"] = r["at_moe_shape"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

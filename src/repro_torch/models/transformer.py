@@ -1,11 +1,13 @@
-"""Decoder-only LM assembly: the dense ``("attn",)`` layer pattern.
+"""Decoder-only LM assembly: the ``("attn",)`` layer pattern, dense or MoE.
 
-The PyTorch counterpart of ``repro.models.transformer`` for dense GQA
-models.  Parameters keep the reference's layout, a dict with ``embed``,
-``groups`` (a one-element list of layer dicts whose leaves are stacked
-along axis 0), ``ln_f`` and ``lm_head``, so every leaf path and shape of a
-checkpoint is the same in both packages (``params/groups/0/attn/wq`` is
-``(n_layers, d, H·dh)``).  Plain functions run over that dict.
+The PyTorch counterpart of ``repro.models.transformer`` for GQA models
+with a dense or a Mixture-of-Experts MLP (``models/moe.py``).  Parameters
+keep the reference's layout, a dict with ``embed``, ``groups`` (a
+one-element list of layer dicts whose leaves are stacked along axis 0),
+``ln_f`` and ``lm_head``, so every leaf path and shape of a checkpoint is
+the same in both packages (``params/groups/0/attn/wq`` is
+``(n_layers, d, H·dh)``, ``params/groups/0/moe/moe_w_gate``
+``(n_layers, E, d, f)``).  Plain functions run over that dict.
 
 The stacked leaves are split into per-layer views with one ``unbind(0)``
 per forward: indexing ``w[i]`` once per layer would make each layer's
@@ -20,7 +22,8 @@ leaf names and shapes (``caches/0/k``) are the reference's.
 ``lm_decode_step`` writes each layer's new K/V row in place and returns
 the caches it was given.
 
-MoE, SSM and hybrid layers are not ported yet and raise.
+A MoE layer's router aux loss is summed over the layers, as in the
+reference.  SSM and hybrid layers are not ported yet and raise.
 
 Forward signatures:
   ``lm_forward(params, tokens, cfg, extra_embeds=None) → (logits, aux)``
@@ -36,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     cast_floating,
     embed_init,
@@ -47,7 +51,7 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 
-_LATER_ARCHS = ("is not ported yet: MoE, SSM and hybrid architectures are "
+_LATER_ARCHS = ("is not ported yet: SSM and hybrid architectures are "
                 "the later architectures of ROADMAP Queue 1, item 2")
 
 
@@ -61,36 +65,49 @@ def dtype_of(name: str) -> torch.dtype:
 # --------------------------------------------------------------------------- #
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"the MoE layer of {cfg.name} {_LATER_ARCHS}")
-    if _pattern(cfg) != ("attn",):
-        raise NotImplementedError(f"layer pattern {_pattern(cfg)} of "
-                                  f"{cfg.name} {_LATER_ARCHS}")
+def _is_moe_layer(cfg: ArchConfig, idx_in_pattern: int) -> bool:
+    if cfg.moe is None:
+        return False
+    return idx_in_pattern % cfg.moe.every_k_layers == (cfg.moe.every_k_layers - 1) \
+        if cfg.moe.every_k_layers > 1 else True
 
 
-def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype
-               ) -> Params:
+def _check_ported(cfg: ArchConfig) -> None:
+    for kind in _pattern(cfg):
+        if kind != "attn":
+            raise NotImplementedError(f"the {kind} layer of {cfg.name} "
+                                      f"{_LATER_ARCHS}")
+
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str,
+               moe_layer: bool, dtype) -> Params:
     if kind != "attn":
         raise NotImplementedError(f"the {kind} layer {_LATER_ARCHS}")
-    return {
+    p: Params = {
         "ln1": init_rmsnorm(cfg.d_model, dtype, gen.device),
         "attn": attn.init_attention(gen, cfg, dtype),
         "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if moe_layer:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
-def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str,
+                moe_layer: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm residual block → (h, aux_loss)."""
     if kind != "attn":
         raise NotImplementedError(f"the {kind} layer {_LATER_ARCHS}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = h + attn.attention(p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg)
     x = rmsnorm(p["ln2"], h, cfg.norm_eps)
-    h = h + mlp(p["mlp"], x, cfg.act)
-    return h, aux
+    if moe_layer:
+        y, aux = moe_mod.moe_mlp(p["moe"], x, cfg)
+    else:
+        y = mlp(p["mlp"], x, cfg.act)
+    return h + y, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -127,12 +144,13 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Parameters on ``gen.device`` in ``cfg.param_dtype``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     pattern = _pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
-    groups = [_stack([init_layer(gen, cfg, kind, dtype)
-                      for _ in range(n_groups)]) for kind in pattern]
+    groups = [_stack([init_layer(gen, cfg, kind, _is_moe_layer(cfg, i), dtype)
+                      for _ in range(n_groups)])
+              for i, kind in enumerate(pattern)]
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "groups": groups,
@@ -151,7 +169,7 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 def lm_backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_dense(cfg)
+    _check_ported(cfg)
     pattern = _pattern(cfg)
     n_groups = params["groups"][0]["ln1"]["scale"].shape[0]
     layers = [_unstack(params["groups"][i], n_groups)
@@ -160,7 +178,7 @@ def lm_backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
     def group_body(h, gp):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, kind in enumerate(pattern):
-            h, a = apply_layer(gp[i], h, cfg, kind)
+            h, a = apply_layer(gp[i], h, cfg, kind, _is_moe_layer(cfg, i))
             aux = aux + a
         return h, aux
 
@@ -215,7 +233,7 @@ class LayerCache(NamedTuple):
 def init_caches(batch: int, cfg: ArchConfig, max_len: int,
                 device="cuda") -> Any:
     """Stacked (n_groups, ...) cache tree in ``cfg.compute_dtype``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     pattern = _pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
@@ -249,7 +267,7 @@ def lm_decode_step(
     pos,                                       # int (or 0-d tensor)
     cfg: ArchConfig,
 ) -> Tuple[torch.Tensor, Any]:
-    _check_dense(cfg)
+    _check_ported(cfg)
     pos = int(pos)
     cdt = dtype_of(cfg.compute_dtype)
     params = cast_floating(params, cdt)
@@ -266,6 +284,10 @@ def lm_decode_step(
                 p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps),
                 type(c)(*(x[g] for x in c)), pos, cfg)
             h = h + y
-            h = h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps),
-                        cfg.act)
+            x = rmsnorm(p["ln2"], h, cfg.norm_eps)
+            if _is_moe_layer(cfg, i):
+                y, _ = moe_mod.moe_mlp(p["moe"], x, cfg)
+            else:
+                y = mlp(p["mlp"], x, cfg.act)
+            h = h + y
     return lm_logits(params, h, cfg), caches

@@ -1,6 +1,7 @@
 """Model zoo: uniform entry points over the ported architectures.
 
-The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs:
+The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs with
+dense or Mixture-of-Experts MLPs (``family`` ``dense``, ``vlm``, ``moe``):
 
   init(gen)                      → params on ``gen.device``
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
@@ -8,7 +9,8 @@ The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs:
   decode_step(params, token, caches, pos) → (logits, caches)
 
 ``decode_step`` updates the caches in place and returns them.
-Encoder-decoder models are a later slice and raise.
+Encoder-decoder models are a later slice and raise; SSM, hybrid and MLA
+models raise from ``init`` (``models/transformer.py``, ``attention.py``).
 """
 from __future__ import annotations
 

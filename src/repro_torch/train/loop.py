@@ -11,7 +11,11 @@ the loop is exactly the paper's five lines:
 
 Level cycling follows FTI practice: frequent cheap L1, periodic L2/L3,
 rare L4 (PFS). Heartbeats feed the launcher's failure detector.  Batches
-go to the device of the parameters.
+go to the device of the parameters.  The loop never reuses a state it has
+handed to ``train_step``, so the step may donate it (``make_train_step(
+donate=True)``, which the launcher uses): a store's Plan has completed its
+device→host snapshot before it returns, so the next step may update the
+tensors in place.
 """
 from __future__ import annotations
 

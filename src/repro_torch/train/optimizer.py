@@ -1,10 +1,18 @@
 """AdamW + learning-rate schedule in plain tensor ops.
 
 The PyTorch counterpart of ``repro.train.optimizer``, written to the same
-formulas in the same order, f32 throughout.  The update is functional, as
-in the reference: ``adamw_update`` returns new parameter and moment
+formulas in the same order, f32 throughout.  ``adamw_update`` is
+functional, as in the reference: it returns new parameter and moment
 tensors and leaves its inputs unchanged, so a state handed to several runs
 (a run and its resume) starts each of them from the same bytes.
+
+``adamw_update_`` is the counterpart of the reference's donated state
+(``donate_argnums=(0,)``): it updates the parameters and moments in their
+own storage, leaf by leaf, and frees each gradient once its leaf is done,
+so a step never holds a second copy of the state.  It runs the same
+operations in the same order (each product materialised, then added in
+place; no fused ``alpha=``, ``addcmul_`` or ``lerp_``), so its bits equal
+the functional update's.
 
 ``count`` and the learning rate live on the host; the moments live with
 the parameters.
@@ -12,7 +20,7 @@ the parameters.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -115,4 +123,46 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: AdamWState,
 
     new_params = tree_map(upd, params, mu, nu)
     return new_params, AdamWState(count, mu, nu), {"lr": lr,
+                                                   "grad_norm": gnorm}
+
+
+def adamw_update_(cfg: AdamWConfig, grads: List[Optional[torch.Tensor]],
+                  state: AdamWState, params: Any) -> Tuple[AdamWState, dict]:
+    """In-place AdamW for a donated state → (new_state, metrics).
+
+    ``grads`` is a list in ``tree_leaves(params)`` order; each entry is set
+    to ``None`` once its leaf is updated, so the list should hold the only
+    reference to the gradients.  The parameter and moment tensors keep
+    their identity: the returned state holds the same ``mu`` and ``nu``
+    trees, and ``params`` is updated where it lies."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    count = state.count + 1
+    lr = lr_schedule(cfg, count)
+    b1c = 1 - cfg.b1 ** count.float()
+    b2c = 1 - cfg.b2 ** count.float()
+
+    for i, (p, m, v) in enumerate(zip(tree_leaves(params),
+                                      tree_leaves(state.mu),
+                                      tree_leaves(state.nu))):
+        g = grads[i].float().contiguous()            # may be written
+        grads[i] = None
+        g.mul_(scale.to(g.dtype))                    # clip_by_global_norm
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        step = m / b1c                               # mhat
+        denom = v / b2c                              # vhat
+        denom.sqrt_().add_(cfg.eps)
+        step.div_(denom)
+        del denom
+        if p.dim() >= 2:                             # decay matrices only
+            step.add_(cfg.weight_decay * p.float())
+        step.mul_(lr)                                # lr · step
+        if p.dtype == torch.float32:
+            p.sub_(step)
+        else:
+            p.copy_((p.float() - step).to(p.dtype))
+        del step
+    return AdamWState(count, state.mu, state.nu), {"lr": lr,
                                                    "grad_norm": gnorm}

@@ -18,7 +18,9 @@ import torch
 from repro_torch.core.protect import flatten_named, unflatten_named
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.models.zoo import Model
-from repro_torch.train.optimizer import AdamWConfig, adamw_update, tree_map
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         adamw_update_, tree_leaves,
+                                         tree_map)
 from repro_torch.train.state import TrainState, fold_in
 
 
@@ -51,8 +53,11 @@ def make_train_step(
     *,
     remat: bool = True,
     num_microbatches: int = 1,
+    donate: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict]]:
-    """Build ``train_step(state, batch) → (state, metrics)``."""
+    """Build ``train_step(state, batch) → (state, metrics)``.  With
+    ``donate`` the state it is given is updated in place (its tensors are
+    the returned state's), so the caller must not reuse it."""
 
     def grad_fn(params, batch):
         leaves = {k: v.detach().requires_grad_(True)
@@ -81,8 +86,16 @@ def make_train_step(
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict]:
         grads, metrics = accumulate(state.params, batch)
-        new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, grads, state.opt, state.params)
+        if donate:
+            # the list holds the only reference to each gradient, so the
+            # update frees it as soon as its leaf is done
+            grads = tree_leaves(grads)
+            new_params = state.params
+            new_opt, opt_metrics = adamw_update_(opt_cfg, grads, state.opt,
+                                                 new_params)
+        else:
+            new_params, new_opt, opt_metrics = adamw_update(
+                opt_cfg, grads, state.opt, state.params)
         metrics = dict(metrics, **opt_metrics)
         new_state = TrainState(
             step=state.step + 1,

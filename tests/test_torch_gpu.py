@@ -615,3 +615,129 @@ def test_sharded_container_restores_onto_card_through_the_directives(
     got, said = load()
     assert int(got["step"]) == 3 and torch.equal(got["w"], state["w"])
     assert any("checkpoint 2: incomplete shard set" in m for m in said)
+
+
+# --------------------------------------------------------------------------- #
+# MoE models and the donated (in-place) AdamW update on the card
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+def test_flash_group_of_three_matches_plain_version_on_card():
+    """granite-moe-3b-a800m's attention: 24 query heads over 8 KV heads (a
+    group of 3, not a power of two) at its training shape and a short one,
+    bf16, causal and not: within one bf16 ulp of flash_attention_gqa_ref,
+    two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for b, s in ((4, 2048), (1, 384)):
+        for causal in (True, False):
+            q = torch.randn(b, s, 24, 64, generator=g,
+                            device="cuda").bfloat16()
+            k, v = (torch.randn(b, s, 8, 64, generator=g, device="cuda")
+                    .bfloat16() for _ in range(2))
+            got = fa.flash_attention_gqa(q, k, v, causal=causal)
+            want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bf16_tolerance(want)).all()), \
+                (b, s, causal, float(err.max()))
+            assert torch.equal(got, fa.flash_attention_gqa(q, k, v,
+                                                           causal=causal))
+
+
+@pytest.mark.gpu
+def test_moe_forward_at_full_width_on_card_matches_the_cpu(monkeypatch):
+    """Two layers of granite-moe-3b-a800m at its published widths (40
+    experts of d_ff 512, top-8, 24 heads over 8), f32 compute: the card's
+    logits within 1e-3 of the CPU's and the aux loss within 1e-5
+    relative, on the same parameters and 256 tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.models.zoo import build_model
+    monkeypatch.delenv("REPRO_ATTN_IMPL", raising=False)
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"), n_layers=2,
+                              compute_dtype="float32")
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0))
+    on_card = unflatten_named({k: v.cuda() for k, v in
+                               flatten_named(params).items()}, params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, aux_w = m.forward(params, {"tokens": toks})
+            got, aux_g = m.forward(on_card, {"tokens": toks.cuda()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.is_cuda and got.shape == (1, 256, cfg.vocab_size)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    assert abs(float(aux_g) - float(aux_w)) <= 1e-5 * abs(float(aux_w))
+
+
+@pytest.mark.gpu
+def test_donated_adamw_on_card_is_bit_equal_to_functional():
+    """On the card: adamw_update_ against adamw_update over 3 steps (a
+    matrix, a vector, a bf16 matrix; gradients past the clip), and three
+    donated steps of a reduced granite against three functional ones in
+    deterministic mode — every leaf bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.data.synthetic import init_data_state, next_batch
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update, adamw_update_,
+                                             tree_leaves)
+    from repro_torch.train.state import init_train_state, prng_key
+    from repro_torch.train.step import (make_train_step,
+                                        use_deterministic_algorithms)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = {"w": torch.randn(64, 96, generator=g, device="cuda"),
+              "b": torch.randn(96, generator=g, device="cuda"),
+              "h": torch.randn(32, 64, generator=g, device="cuda").bfloat16()}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
+    fp = {k: v.clone() for k, v in params.items()}
+    ip = {k: v.clone() for k, v in params.items()}
+    fs, is_ = adamw_init(fp), adamw_init(ip)
+    for _ in range(3):
+        grads = {k: (torch.randn(v.shape, generator=g, device="cuda") * 10)
+                 .to(v.dtype) for k, v in params.items()}
+        fp, fs, _ = adamw_update(cfg, grads, fs, fp)
+        is_, _ = adamw_update_(cfg, tree_leaves(
+            {k: v.clone() for k, v in grads.items()}), is_, ip)
+    for f, i in ((fp, ip), (fs.mu, is_.mu), (fs.nu, is_.nu)):
+        for x, y in zip(tree_leaves(f), tree_leaves(i)):
+            assert torch.equal(x, y)
+
+    use_deterministic_algorithms()
+    try:
+        mcfg = get_arch("granite-moe-3b-a800m").reduced()
+        model = build_model(mcfg)
+        opt = AdamWConfig(total_steps=10, warmup_steps=1)
+        fstate = init_train_state(
+            model.init(torch.Generator(device="cuda").manual_seed(0)),
+            prng_key(1), init_data_state(0))
+        dstate = unflatten_named({k: v.clone() for k, v in
+                                  flatten_named(fstate).items()}, fstate)
+        functional = make_train_step(model, opt)
+        donating = make_train_step(model, opt, donate=True)
+        for _ in range(3):
+            batch, nxt = next_batch(fstate.data_state, mcfg, 2, 64, "cuda")
+            fstate, fm = functional(fstate, batch)
+            dstate, dm = donating(dstate, batch)
+            fstate = fstate._replace(data_state=nxt)
+            dstate = dstate._replace(data_state=nxt)
+            assert torch.equal(fm["loss"], dm["loss"])
+        a, b = flatten_named(fstate), flatten_named(dstate)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        assert a["params/embed"].is_cuda
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` imports neither jax nor any module
 of the JAX package ``repro``, and its main paths (directives, training,
-serving and deploy, a chaos scenario cell and an elastic restore) run with
-jax absent — as ``chip_smoke.py`` drives them, which also refuses to run
-without a card."""
+a reduced MoE model's forward and donated step, serving and deploy, a
+chaos scenario cell and an elastic restore) run with jax absent — as
+``chip_smoke.py`` drives them, which also refuses to run without a
+card."""
 import ast
 import os
 import subprocess
@@ -71,6 +72,17 @@ batch, ds = next_batch(st.data_state, acfg, 2, 32)
 st, met = make_train_step(model, AdamWConfig())(st, batch)
 st = st._replace(data_state=ds)
 assert torch.isfinite(met["loss"]) and int(st.step) == 1
+# a reduced MoE model: a forward and a donated train step
+mcfg = get_arch("granite-moe-3b-a800m").reduced()
+mm = build_model(mcfg)
+ms = init_train_state(mm.init(torch.Generator().manual_seed(0)),
+                      prng_key(1), init_data_state(0))
+mb, _ = next_batch(ms.data_state, mcfg, 2, 32)
+mlogits, maux = mm.forward(ms.params, mb)
+assert float(maux) > 0 and bool(torch.isfinite(mlogits.float()).all())
+membed = ms.params["embed"]
+ms, mmet = make_train_step(mm, AdamWConfig(), donate=True)(ms, mb)
+assert ms.params["embed"] is membed and torch.isfinite(mmet["loss"])
 tcfg = CheckpointConfig(dir=d + "/train", backend="fti", objstore=False)
 ctx3 = CheckpointContext(tcfg)
 ctx3.store(st, id=1, level=1)
@@ -151,7 +163,7 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     bad = []
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     scanned = {str(p.relative_to(SRC / "repro_torch")) for p in paths}
-    assert {"models/attention.py", "models/transformer.py",
+    assert {"models/attention.py", "models/transformer.py", "models/moe.py",
             "kernels/flashattn.py", "train/step.py", "train/loop.py",
             "launch/train.py", "data/synthetic.py", "configs/base.py",
             "core/incremental.py", "backends/scr.py", "objstore/tier.py",

@@ -203,9 +203,18 @@ def test_next_batch_is_a_pure_function_of_the_cursor():
 # one train step against the reference
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("attn_impl,microbatches", [
-    ("blockwise", 1), ("flash", 1), ("blockwise", 2)])
-def test_train_step_matches_jax(monkeypatch, attn_impl, microbatches):
+@pytest.mark.parametrize("arch,attn_impl,microbatches,eps", [
+    pytest.param(ARCH, "blockwise", 1, 1e-6, id="blockwise-1"),
+    pytest.param(ARCH, "flash", 1, 1e-6, id="flash-1"),
+    pytest.param(ARCH, "blockwise", 2, 1e-6, id="blockwise-2"),
+    # the other dense archs: qkv bias; the vision stub's patch embeddings
+    pytest.param("llama3.2-3b", "flash", 1, 1e-5, id="llama3.2-3b-flash-1"),
+    pytest.param("codeqwen1.5-7b", "blockwise", 1, 1e-5,
+                 id="codeqwen1.5-7b-blockwise-1"),
+    pytest.param("internvl2-1b", "flash", 1, 1e-5,
+                 id="internvl2-1b-flash-1")])
+def test_train_step_matches_jax(monkeypatch, arch, attn_impl, microbatches,
+                                eps):
     """Same weights, batch and f32 compute: new params, mu, nu within 1e-6
     of the reference, mu (a tenth of the clipped gradient) within 2e-8, the
     loss within 1e-6 relative (the packages sum in different orders; f32
@@ -215,18 +224,27 @@ def test_train_step_matches_jax(monkeypatch, attn_impl, microbatches):
 
     Adam's eps is 1e-6 here, not the default 1e-8: the first step moves a
     weight by lr·g/(|g|+eps), which near |g| = eps turns a 1e-9 difference
-    in g (f32 rounding of larger sums) into 4e-6 of weight."""
+    in g (f32 rounding of larger sums) into 4e-6 of weight.  The other
+    dense archs run it at 1e-5: reduced codeqwen's embed has a gradient of
+    7.8e-7, where a 2e-8 difference in g (mu within its 2e-8) moves the
+    weight by 1.01e-6 at eps 1e-6."""
     monkeypatch.delenv("REPRO_ATTN_IMPL", raising=False)
-    jcfg = dataclasses.replace(jget_arch(ARCH).reduced(),
+    jcfg = dataclasses.replace(jget_arch(arch).reduced(),
                                compute_dtype="float32")
-    cfg = dataclasses.replace(get_arch(ARCH).reduced(),
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
                               compute_dtype="float32")
     jstate = _jax_state(jcfg)
-    opt = dict(total_steps=20, warmup_steps=2, eps=1e-6)
+    opt = dict(total_steps=20, warmup_steps=2, eps=eps)
     rng = np.random.RandomState(0)
     toks = rng.randint(0, cfg.vocab_size, size=(4, 33)).astype(np.int32)
-    jbatch = {"tokens": jnp.asarray(toks[:, :-1]),
-              "labels": jnp.asarray(toks[:, 1:])}
+    batch_np = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.n_frontend_tokens:             # labels cover patches + text
+        p = cfg.n_frontend_tokens
+        batch_np["patch_embeds"] = (rng.randn(4, p, cfg.d_model)
+                                    * 0.02).astype(np.float32)
+        batch_np["labels"] = np.concatenate(
+            [np.full((4, p), -1, np.int32), toks[:, 1:]], axis=1)
+    jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     jnew, jmet = jax.jit(jmake_train_step(
         jbuild_model(jcfg), JAdamWConfig(**opt), remat=False,
         num_microbatches=microbatches))(jstate, jbatch)
@@ -236,8 +254,7 @@ def test_train_step_matches_jax(monkeypatch, attn_impl, microbatches):
     tstate = unflatten_named(from_numpy_named(_jax_named_np(jstate)),
                              _torch_state(cfg))
     before = to_host(flatten_named(tstate))
-    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
-             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    batch = {k: torch.from_numpy(v.copy()) for k, v in batch_np.items()}
     ops.reset_launch_counts()
     new, met = make_train_step(build_model(cfg), AdamWConfig(**opt),
                                remat=True, num_microbatches=microbatches)(
