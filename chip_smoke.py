@@ -16,7 +16,11 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    base, ragged last block, every dtype width, unaligned storage offsets,
    a 0-byte leaf; one leaf per launch, and every case in one table), bit
    for bit, and a round trip from ``ops.pack_dirty_many`` through the host
-   to ``ops.unpack_dirty_many``; ``flashattn`` against ``flash_attention_ref`` at
+   to ``ops.unpack_dirty_many``; the serve paths' cache leaves (phase 7's
+   (22, 4, 2048, 4, 64) KV leaves, phase 10's (62, 4, 2048, 256) latent
+   and (62, 4, 2048, 32) rotary-key leaves, bf16) hashed, and the blocks
+   16 decode positions dirty packed and scattered into a cold cache;
+   ``flashattn`` against ``flash_attention_ref`` at
    tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
    not, and at S 256, and its grouped entry against
    ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
@@ -78,8 +82,10 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    tokens (each with the dirty-block count the written positions give),
    faults after 48 tokens; a fresh context restores into a cold cache on
    the card (the DIFF chain replayed with ``diffunpack``) and generation
-   goes on.  B's tokens and final state must equal A's bit for bit.  Then
-   a publisher (default ``CheckpointConfig``: object store on) stores the
+   goes on.  B's tokens and final state must equal A's bit for bit.  Then,
+   at ``DEPLOY_LAYERS`` (8) of the 22 layers (the first FULL L4's
+   single-threaded CDC scan is cut for the time phase 10 takes), a
+   publisher (default ``CheckpointConfig``: object store on) stores the
    params as a FULL at L4, a ``FleetDeployer`` rolls them onto two
    replicas on the card, one per poll; a fine-tune in place (1,024
    tokens' rows of embed and columns of lm_head, every norm) is published
@@ -110,26 +116,42 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    (written by the worker) must be two per layer and step it trained.
 
 9. Checkpointed MoE training at full width: granite-moe-3b-a800m
-   (hf:ibm-granite/granite-3.0-1b-a400m-base: 32 layers, d_model 1536,
-   24 heads / 8 KV heads of 64, 40 experts of d_ff 512, top-8, capacity
-   factor 1.5, groups of 256, einsum dispatch, tied embed, vocab 49155;
-   no cut), its TrainState of 39.6 GB (params, mu, nu in f32; 36 leaves
-   on the card), bf16 compute, run as phase 5 with donated steps (the
+   (hf:ibm-granite/granite-3.0-1b-a400m-base: d_model 1536, 24 heads / 8
+   KV heads of 64, 40 experts of d_ff 512, top-8, capacity factor 1.5,
+   groups of 256, einsum dispatch, tied embed, vocab 49155; its depth cut
+   from 32 to ``MOE_LAYERS`` (16) for the time phase 10 takes), its
+   TrainState of 20.2 GB (params, mu, nu in f32; 36 leaves on the card),
+   bf16 compute, run as phase 5 with donated steps (the
    parameters and moments updated in place, as the launcher does), with
    the same checks; the profiled step also reports the MoE dispatch and
    combine einsums' device time.
+
+10. MLA served at full width: minicpm3-4b (hf:openbmb/MiniCPM3-4B: 62
+   layers, d_model 2560, 40 heads; q_lora 768, kv_lora 256, qk nope/rope
+   64/32, v_head 64; d_ff 6400, vocab 73448, untied lm_head; no cut), f32
+   parameters, bf16 compute, deterministic, decoding in the absorbed form
+   over its latent cache (c_kv (62, 4, 2048, 256) and k_rope (62, 4,
+   2048, 32), 292.6 MB), with phase 7's batch, prompts, cache length,
+   DIFF cadence and fault: run A uninterrupted, run B with a FULL
+   ServeState after prefill, a DIFF every 16 tokens (each with the
+   dirty-block count the written positions give), the fault after 48, a
+   restore into a cold cache on the card and generation on; B's tokens
+   and final state must equal A's bit for bit, and the launches over the
+   phase must match the leaves hashed, the DIFF stores packed and the
+   links replayed (``flashattn`` none).  No deploy runs here.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6, 7, 8 and 9 on the CPU with the plain versions
-(phases 5, 7, 9 and 8's supervised kill on a reduced config) and prints
-no result.
+rehearses phases 3, 5, 6, 7, 8, 9 and 10 on the CPU with the plain
+versions (phases 5, 7, 9, 10 and 8's supervised kill on a reduced config)
+and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -177,6 +199,14 @@ SEED = 0
 #: phase 6's depth: its FULL L4's CDC scan is single-threaded numpy
 #: (~155 s at 22 layers on an H100 host), cut for the time phase 9 takes
 OBJSTORE_LAYERS = 4
+#: the depth of phase 7's deploy half, cut from 22 for the same scan (its
+#: first publish took 153–205 s) and the time phase 10 takes.  At 4 layers
+#: the fine-tune's embed and lm_head rows are 0.42 of the entry, over the
+#: fetch gate of 0.30; at 8 they are 0.27.
+DEPLOY_LAYERS = 8
+#: phase 9's depth, cut from granite's 32 for the time phase 10 takes (its
+#: 39.6 GB FULL restored in 108–176 s)
+MOE_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -626,34 +656,39 @@ def check_kernels(torch, device, ops, ref, bh, dp):
         if not torch.equal(ops.as_u32_blocks(dst, BLOCK_BYTES)[0], want):
             fail("unpack_dirty_many of pack_dirty_many's rows does not "
                  "rebuild the blocks")
-    # the serve path's leaves (phase 7): a stacked bf16 KV-cache leaf and
-    # last_token hashed; the rows that one DIFF store makes dirty (the
-    # positions of SERVE_EVERY decode steps in both cache leaves, and
-    # last_token) packed in one launch, then scattered into a cold cache
+    # the serve paths' leaves (phase 7's GQA KV cache, phase 10's MLA
+    # latent cache: c_kv with 512-byte rows, k_rope with 64-byte rows):
+    # each stacked bf16 cache leaf and last_token hashed; the rows that one
+    # DIFF store makes dirty (the positions of SERVE_EVERY decode steps in
+    # each cache leaf, and last_token) packed in one launch, then scattered
+    # into a cold cache
     from repro_torch.configs import get_arch
     from repro_torch.core.protect import flatten_named
     from repro_torch.models.zoo import build_model
-    meta = build_model(get_arch("tinyllama-1.1b")).cache_struct(
-        SERVE_BATCH, SERVE_MAX_LEN)
-    kv = [torch.randn(m.shape, generator=gen, device=device).to(m.dtype)
-          for m in flatten_named(meta).values()]
     last = torch.randint(0, 32_000, (SERVE_BATCH, 1), generator=gen,
                          device=device, dtype=torch.int32)
-    hash_case(f"serve cache leaf {tuple(kv[0].shape)} {kv[0].dtype}", kv[0])
     hash_case(f"serve last_token {tuple(last.shape)}", last)
     steps = range(SERVE_PROMPT, SERVE_PROMPT + SERVE_EVERY)
-    serve = [(x, np.asarray(cache_dirty_blocks(x, steps, BLOCK_BYTES),
-                            np.int32)) for x in kv]
-    serve.append((last, np.array([0], np.int32)))
-    pack_many_case(f"serve DIFF ({sum(len(i) for _, i in serve)} rows over "
-                   f"both cache leaves and last_token)", serve)
-    rows = dp.diffpack_many([x for x, _ in serve], [i for _, i in serve],
-                            BLOCK_BYTES)
-    cut = np.cumsum([0] + [len(i) for _, i in serve])
-    unpack_check("serve DIFF into a cold cache",
-                 [(torch.zeros_like(x), i, rows[a:b])
-                  for (x, i), a, b in zip(serve, cut[:-1], cut[1:])])
-    del kv, serve, rows
+    for arch in ("tinyllama-1.1b", MLA_ARCH):
+        meta = flatten_named(build_model(get_arch(arch)).cache_struct(
+            SERVE_BATCH, SERVE_MAX_LEN))
+        serve = []
+        for name, m in meta.items():
+            x = torch.randn(m.shape, generator=gen, device=device).to(m.dtype)
+            hash_case(f"{arch} cache leaf {name} {tuple(x.shape)} {x.dtype}",
+                      x)
+            serve.append((x, np.asarray(
+                cache_dirty_blocks(x, steps, BLOCK_BYTES), np.int32)))
+        serve.append((last, np.array([0], np.int32)))
+        pack_many_case(f"{arch} serve DIFF ({sum(len(i) for _, i in serve)} "
+                       f"rows over its cache leaves and last_token)", serve)
+        rows = dp.diffpack_many([x for x, _ in serve], [i for _, i in serve],
+                                BLOCK_BYTES)
+        cut = np.cumsum([0] + [len(i) for _, i in serve])
+        unpack_check(f"{arch} serve DIFF into a cold cache",
+                     [(torch.zeros_like(x), i, rows[a:b])
+                      for (x, i), a, b in zip(serve, cut[:-1], cut[1:])])
+        del serve, rows
     try:
         dp.diffunpack_many([torch.zeros(64, 64, device=device).t()],
                            [np.zeros(1, np.int32)],
@@ -1168,14 +1203,15 @@ def host_mem_total() -> int:
 
 
 def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
-                  donate: bool = False, ranges=()) -> dict:
+                  donate: bool = False, ranges=(), layers=None) -> dict:
     """Phases 5 and 9.  Run A: TRAIN_STEPS steps, no store; each leaf's
     SHA-256.  Run B, from the same seed: a FULL store at step 2, an
     injected fault at step 3; the faulted state is freed, and a fresh
     context restores into a template that holds no device memory and runs
     step 3.  Its leaves' SHA-256 must equal run A's.  ``donate``: the
     steps update the state in place (the launcher's step); ``ranges``:
-    ``record_function`` ranges the profiled step reports."""
+    ``record_function`` ranges the profiled step reports; ``layers``: a
+    cut of the config's depth on the card."""
     import gc
 
     from repro_torch.configs import get_arch
@@ -1193,6 +1229,8 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
 
     on_card = device.type == "cuda"
     cfg, batch, seq = get_arch(arch), TRAIN_BATCH, TRAIN_SEQ
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     if not on_card:                                  # the CPU rehearsal
         cfg, batch, seq = cfg.reduced(), 2, 64
     os.environ["REPRO_ATTN_IMPL"] = "flash"
@@ -1634,11 +1672,12 @@ SERVE_TUNED_TOKENS = 1024
 
 
 def cache_dirty_blocks(k, positions, block_bytes: int) -> list:
-    """Hash blocks, sorted, of one stacked (n_groups, B, C, KV, dh) cache
-    leaf that the decode steps at ``positions`` wrote: one row of KV·dh
-    elements per (layer, sequence) slab and position."""
+    """Hash blocks, sorted, of one stacked (n_groups, B, C, *rest) cache
+    leaf that the decode steps at ``positions`` wrote: one row of
+    prod(rest) elements (GQA: KV·dh; MLA: the latent's r, or the rotary
+    key's rope_dim) per (layer, sequence) slab and position."""
     n_groups, batch, c = k.shape[:3]
-    row = k.shape[3] * k.shape[4] * k.element_size()
+    row = math.prod(k.shape[3:]) * k.element_size()
     out = set()
     for slab in range(n_groups * batch):
         for pos in positions:
@@ -1648,58 +1687,34 @@ def cache_dirty_blocks(k, positions, block_bytes: int) -> list:
     return sorted(out)
 
 
-def serve_path(torch, args, device, ops) -> dict:
-    """Phase 7.  Serve and resume: run A generates uninterrupted; run B
-    stores a FULL ServeState after prefill and a DIFF every SERVE_EVERY
-    tokens, faults after SERVE_FAULT, restores into a cold cache on the
-    device (the DIFF chain replayed there) and generates on; both must
-    agree bit for bit.  Then a rolling deploy: a publisher stores two FULL
-    param trees at L4 through the object store, a FleetDeployer rolls each
-    onto two replicas, one per poll.  → the kernels' launch counts over
-    the phase."""
-    from repro_torch.configs import get_arch
+def cache_nbytes(model, batch: int, max_len: int) -> dict:
+    """{cache leaf: bytes} of the model's decode cache (from its meta
+    structure: no memory)."""
+    from repro_torch.core.protect import flatten_named
+    return {k: v.numel() * v.element_size() for k, v in
+            flatten_named(model.cache_struct(batch, max_len)).items()}
+
+
+def serve_resume(torch, device, ops, model, handle, prompts, dims, bb: int,
+                 tag: str, root: Path) -> dict:
+    """Serve and resume one model.  Run A prefills and generates ``gen_n``
+    tokens uninterrupted (one more decode step profiled on the card); run B
+    stores a FULL ServeState after prefill (FTI, level 1, CP-dedicated
+    thread) and a DIFF every ``every`` tokens, each with the dirty-block
+    count the written positions give, faults after ``fault``, restores into
+    a cold cache on the device (the DIFF chain replayed there) and
+    generates on; both must agree bit for bit.  ``dims``: (max_len, gen_n,
+    every, fault).  → {"st_prefill": the state after prefill, "n_dev":
+    ServeState leaves on the device, "diffs": DIFF stores, "replayed":
+    diffunpack launches of the restore}"""
     from repro_torch.core.context import (CHK_DIFF, CheckpointConfig,
                                           CheckpointContext)
     from repro_torch.core.formats import tensor_to_numpy
     from repro_torch.core.protect import flatten_named
-    from repro_torch.models.zoo import build_model
-    from repro_torch.objstore.client import make_object_store
-    from repro_torch.serve.deploy import FleetDeployer, Replica
-    from repro_torch.serve.engine import (ServeState, ServingEngine,
-                                          WeightsHandle)
-    from repro_torch.train.step import use_deterministic_algorithms
+    from repro_torch.serve.engine import ServeState, ServingEngine
 
-    on_card = device.type == "cuda"
-    bb = args.block_bytes
-    cfg = get_arch("tinyllama-1.1b")
-    batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
-    gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
-    n_tuned = SERVE_TUNED_TOKENS
-    if not on_card:                                  # the CPU rehearsal
-        cfg, batch, prompt, max_len = cfg.reduced(), 2, 8, 64
-        gen_n, every, fault, n_tuned = 16, 4, 12, 2
-    if on_card:
-        use_deterministic_algorithms()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg)
-    handle = WeightsHandle(params=model.init(
-        torch.Generator(device=device).manual_seed(SEED + 7)))
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                            generator=torch.Generator().manual_seed(SEED + 8),
-                            dtype=torch.int32).to(device)
-    cache_bytes = 2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads * \
-        cfg.head_dim * torch.empty((), dtype=getattr(
-            torch, cfg.compute_dtype)).element_size()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
-        f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
-        f"tokens, max_len {max_len}: KV cache {cache_bytes / 1e6:.1f} MB")
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
-    SERVE_DIR.mkdir(parents=True)
-    log(f"[serve] free disk under {SERVE_DIR.parent}: "
-        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB")
-    ops.reset_launch_counts()
+    batch, prompt = prompts.shape
+    max_len, gen_n, every, fault = dims
 
     # run A: prefill, then gen_n tokens uninterrupted
     eng = ServingEngine(model, handle, batch, max_len)
@@ -1717,17 +1732,17 @@ def serve_path(torch, args, device, ops) -> dict:
     tokens_per_s = batch * gen_n / gen_s
     final_a = {k: tensor_to_numpy(v)
                for k, v in flatten_named(eng.get_state()).items()}
-    log(f"[serve] run A: prefill {prompt} tokens in {prefill_s:.3f} s "
+    log(f"[{tag}] run A: prefill {prompt} tokens in {prefill_s:.3f} s "
         f"({prefill_s / prompt * 1e3:.2f} ms per step); {gen_n} "
         f"tokens in {gen_s:.3f} s: {decode_ms:.2f} ms per decode "
         f"step, {tokens_per_s:.1f} tokens/s")
-    if on_card:                        # one more decode step, profiled
+    if device.type == "cuda":          # one more decode step, profiled
         profile_step(torch, lambda: eng.generate(1))
     del eng
 
     # run B: FULL after prefill, a DIFF every `every` tokens, a fault after
     # `fault`, a restore into a cold cache on the device, generate on
-    ckpt_cfg = CheckpointConfig(dir=str(SERVE_DIR / "b"), backend="fti",
+    ckpt_cfg = CheckpointConfig(dir=str(root / "b"), backend="fti",
                                 block_bytes=bb, dedicated_thread=True,
                                 objstore=False)
     reports, blocked, want_dirty = [], {}, {}
@@ -1755,7 +1770,7 @@ def serve_path(torch, args, device, ops) -> dict:
             len(cache_dirty_blocks(c, range(p0, p0 + every), bb))
             for c in flatten_named(st.caches).values())
         prev = st
-    log(f"[serve] run B: fault after {fault} tokens (the engine and its "
+    log(f"[{tag}] run B: fault after {fault} tokens (the engine and its "
         f"caches are dropped)")
     del eng, prev, st
     t = time.time()
@@ -1770,15 +1785,15 @@ def serve_path(torch, args, device, ops) -> dict:
         r = by_id[i]
         got = None if r.dirty_ratio is None else \
             round(r.dirty_ratio * total_blocks)
-        log(f"[serve] store {i}: kind={r.kind} bytes_payload="
+        log(f"[{tag}] store {i}: kind={r.kind} bytes_payload="
             f"{r.bytes_payload} plan_s={r.plan_seconds:.4f} store_call_s="
             f"{blocked[i]:.4f} total_s={r.seconds:.4f}" + (
                 "" if got is None else
                 f" dirty blocks {got} (expected {want_dirty[i]})"))
         if got is not None and got != want_dirty[i]:
-            fail(f"serve DIFF {i}: {got} dirty blocks, expected "
+            fail(f"{tag} DIFF {i}: {got} dirty blocks, expected "
                  f"{want_dirty[i]} from the positions written")
-    log(f"[serve] shutdown waited {drain_s:.2f} s for the last tail")
+    log(f"[{tag}] shutdown waited {drain_s:.2f} s for the last tail")
 
     template = ServeState(model.init_caches(batch, max_len, device=device),
                           torch.tensor(0, dtype=torch.int32),
@@ -1794,7 +1809,7 @@ def serve_path(torch, args, device, ops) -> dict:
     restore_s = time.time() - t
     replayed = ops.launch_counts()["diffunpack"] - n0
     if not ctx.restarted or int(restored.pos) != prompt + fault:
-        fail(f"the serving restore found pos "
+        fail(f"the {tag} restore found pos "
              f"{int(restored.pos) if ctx.restarted else None}, not "
              f"{prompt + fault}")
     eng = ServingEngine(model, handle, batch, max_len)
@@ -1803,19 +1818,77 @@ def serve_path(torch, args, device, ops) -> dict:
     toks_b.append(eng.generate(gen_n - fault))
     got_b = torch.cat(toks_b, dim=1)
     if not torch.equal(got_b, toks_a):
-        fail("run B's tokens differ from run A's after the restore")
+        fail(f"{tag} run B's tokens differ from run A's after the restore")
     bad = [k for k, v in flatten_named(eng.get_state()).items()
            if tensor_to_numpy(v).tobytes() != final_a[k].tobytes()]
     if bad:
-        fail(f"run B's final ServeState differs from run A's: {bad}")
+        fail(f"{tag} run B's final ServeState differs from run A's: {bad}")
     del eng
-    log(f"[serve] restore: {restore_s:.3f} s (FULL + {len(diffs)} "
+    log(f"[{tag}] restore: {restore_s:.3f} s (FULL + {len(diffs)} "
         f"DIFF links into a cold cache on {device}, {replayed} diffunpack "
         f"launches); run B's {gen_n} tokens and final ServeState equal run "
         f"A's bit for bit")
+    return {"st_prefill": st_prefill, "diffs": len(diffs),
+            "replayed": replayed,
+            "n_dev": sum(x.device.type == device.type
+                         for x in named.values())}
 
-    # rolling deploy: publish v1, roll it; fine-tune in place, publish v2,
-    # roll it; one replica per poll
+
+def serve_path(torch, args, device, ops) -> dict:
+    """Phase 7.  Serve and resume tinyllama-1.1b (:func:`serve_resume`).
+    Then a rolling deploy: a publisher stores two FULL param trees at L4
+    through the object store, a FleetDeployer rolls each onto two
+    replicas, one per poll.  → the kernels' launch counts over the
+    phase."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.models.zoo import build_model
+    from repro_torch.objstore.client import make_object_store
+    from repro_torch.serve.deploy import FleetDeployer, Replica
+    from repro_torch.serve.engine import ServingEngine, WeightsHandle
+    from repro_torch.train.step import use_deterministic_algorithms
+
+    on_card = device.type == "cuda"
+    bb = args.block_bytes
+    cfg = get_arch("tinyllama-1.1b")
+    batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
+    n_tuned = SERVE_TUNED_TOKENS
+    if not on_card:                                  # the CPU rehearsal
+        cfg, batch, prompt, max_len = cfg.reduced(), 2, 8, 64
+        gen_n, every, fault, n_tuned = 16, 4, 12, 2
+    if on_card:
+        use_deterministic_algorithms()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    handle = WeightsHandle(params=model.init(
+        torch.Generator(device=device).manual_seed(SEED + 7)))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(SEED + 8),
+                            dtype=torch.int32).to(device)
+    cache_bytes = sum(cache_nbytes(model, batch, max_len).values())
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
+        f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
+        f"tokens, max_len {max_len}: KV cache {cache_bytes / 1e6:.1f} MB")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    log(f"[serve] free disk under {SERVE_DIR.parent}: "
+        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB")
+    ops.reset_launch_counts()
+    run = serve_resume(torch, device, ops, model, handle, prompts,
+                       (max_len, gen_n, every, fault), bb, "serve",
+                       SERVE_DIR)
+    del handle, run["st_prefill"]
+
+    # rolling deploy at DEPLOY_LAYERS of depth: publish v1, roll it;
+    # fine-tune in place, publish v2, roll it; one replica per poll
+    model = build_model(dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, DEPLOY_LAYERS)))
+    log(f"[serve] deploy: {model.cfg.n_layers} of {cfg.n_layers} layers at "
+        f"the same widths")
     pub_kw = {} if on_card else dict(     # the CPU rehearsal's tiny tree
         objstore_cdc_min_bytes=1024, objstore_cdc_avg_bytes=4096,
         objstore_cdc_max_bytes=16384, objstore_chunk_bytes=4096)
@@ -1906,9 +1979,9 @@ def serve_path(torch, args, device, ops) -> dict:
     # a swapped replica serves what an engine born with v2 serves
     n_cmp = every
     r0 = replicas[0].engine
-    r0.set_state(st_prefill)
     direct = ServingEngine(model, v, batch, max_len)
-    direct.set_state(st_prefill)
+    direct.prefill(prompts)
+    r0.set_state(direct.get_state())
     if not torch.equal(r0.generate(n_cmp), direct.generate(n_cmp)):
         fail("a replica swapped to entry 2 generates other tokens than an "
              "engine built on the published tree")
@@ -1916,7 +1989,7 @@ def serve_path(torch, args, device, ops) -> dict:
         f"{r0.weights.epoch}) generates the {n_cmp} tokens of an engine "
         f"built on the published tree")
     n_param_leaves = len(published[2])
-    del replicas, dep, direct, r0, v, published, handle, st_prefill
+    del replicas, dep, direct, r0, v, published
     sync(torch, device)
     launches = ops.launch_counts()
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
@@ -1927,16 +2000,92 @@ def serve_path(torch, args, device, ops) -> dict:
     # every store hashes the ServeState's leaves on the card (pos lives on
     # the host), each publish the param tree's; one pack per DIFF store and
     # one unpack per DIFF link replayed
-    n_dev = sum(x.device.type == device.type for x in named.values())
-    want = {"blockhash2": (1 + len(diffs)) * n_dev + 2 * n_param_leaves,
-            "diffpack": len(diffs), "diffunpack": len(diffs),
-            "flashattn": 0}
+    want = serve_launches(run)
+    want["blockhash2"] += 2 * n_param_leaves
     log(f"[serve] kernel launches over the phase: {launches} "
         f"(expected on the card: {want})")
-    if on_card and (launches != want or replayed != len(diffs)):
+    if on_card and (launches != want or run["replayed"] != run["diffs"]):
         fail("phase 7 launch counts do not match the leaves hashed, the "
              "DIFF stores packed and the DIFF links replayed")
     return launches
+
+
+def serve_launches(run: dict) -> dict:
+    """The launches :func:`serve_resume`'s stores and restore make on the
+    card: a hash of every card leaf of the ServeState per store, a pack
+    per DIFF store, an unpack per DIFF link replayed, no attention."""
+    return {"blockhash2": (1 + run["diffs"]) * run["n_dev"],
+            "diffpack": run["diffs"], "diffunpack": run["diffs"],
+            "flashattn": 0}
+
+# --------------------------------------------------------------------------- #
+# phase 10: MLA served at full width, its latent cache checkpointed
+# --------------------------------------------------------------------------- #
+
+MLA_ARCH = "minicpm3-4b"
+MLA_DIR = ROOT / "build" / "chip_smoke_mla"
+
+
+def mla_path(torch, args, device, ops) -> dict:
+    """Phase 10.  minicpm3-4b at its published widths serves and resumes
+    as phase 7's first half (:func:`serve_resume`, phase 7's batch, prompt,
+    cache length, tokens, DIFF cadence and fault) with its absorbed-form
+    decode over the latent cache.  → {"launches": counts over the phase,
+    "layers": its depth}"""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import WeightsHandle
+    from repro_torch.train.step import use_deterministic_algorithms
+
+    on_card = device.type == "cuda"
+    cfg = get_arch(MLA_ARCH)
+    batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
+    if not on_card:                                  # the CPU rehearsal
+        cfg, batch, prompt, max_len = cfg.reduced(), 2, 8, 64
+        gen_n, every, fault = 16, 4, 12
+    if on_card:
+        use_deterministic_algorithms()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    m = cfg.mla
+    model = build_model(cfg)
+    handle = WeightsHandle(params=model.init(
+        torch.Generator(device=device).manual_seed(SEED + 12)))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(SEED + 13),
+                            dtype=torch.int32).to(device)
+    leaves = cache_nbytes(model, batch, max_len)
+    log(f"[mla] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads; MLA q_lora {m.q_lora_rank}, kv_lora "
+        f"{m.kv_lora_rank}, qk nope/rope {m.qk_nope_dim}/{m.qk_rope_dim}, "
+        f"v_head {m.v_head_dim}; d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{cfg.param_count():,} parameters in {cfg.param_dtype}, "
+        f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
+        f"tokens, max_len {max_len}: latent cache "
+        f"{sum(leaves.values()) / 1e6:.1f} MB (" + ", ".join(
+            f"{k} {v / 1e6:.1f} MB" for k, v in leaves.items()) + ")")
+    shutil.rmtree(MLA_DIR, ignore_errors=True)
+    MLA_DIR.mkdir(parents=True)
+    ops.reset_launch_counts()
+    run = serve_resume(torch, device, ops, model, handle, prompts,
+                       (max_len, gen_n, every, fault), args.block_bytes,
+                       "mla", MLA_DIR)
+    del handle, run["st_prefill"]
+    sync(torch, device)
+    launches = ops.launch_counts()
+    shutil.rmtree(MLA_DIR, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    if on_card:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+    want = serve_launches(run)
+    log(f"[mla] kernel launches over the phase: {launches} (expected on "
+        f"the card: {want}); max_memory_allocated {peak:.2f} GB")
+    if on_card and (launches != want or run["replayed"] != run["diffs"]):
+        fail("phase 10 launch counts do not match the leaves hashed, the "
+             "DIFF stores packed and the DIFF links replayed")
+    return {"launches": launches, "layers": cfg.n_layers}
 
 # --------------------------------------------------------------------------- #
 # phase 8: the chaos matrix, elastic rescale and a sharded container
@@ -2212,7 +2361,7 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=22,
                     help="decoder layers of phases 3 and 6, phase 6 at most "
                          f"{OBJSTORE_LAYERS} (a cut of depth; training and "
-                         "serving keep all 22)")
+                         "serving keep all their layers)")
     ap.add_argument("--width-div", type=int, default=1,
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
@@ -2240,6 +2389,7 @@ def main() -> None:
         chaos_path(torch, args, torch.device("cpu"), ops)
         training_path(torch, args, torch.device("cpu"), ops, MOE_ARCH, "moe",
                       MOE_DIR, donate=True)
+        mla_path(torch, args, torch.device("cpu"), ops)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -2253,7 +2403,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
-    t = time.time()
+    t = t_start = time.time()
     sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
     logs = build.compile_all(sources)
     log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
@@ -2293,15 +2443,22 @@ def main() -> None:
         f"layers): {time.time() - t:.1f} s")
     t = time.time()
     serve_launches = serve_path(torch, args, device, ops)
-    log(f"[phase] serve and deploy: {time.time() - t:.1f} s")
+    log(f"[phase] serve and deploy (deploy at {DEPLOY_LAYERS} of 22 layers): "
+        f"{time.time() - t:.1f} s")
     t = time.time()
     chaos = chaos_path(torch, args, device, ops)
     log(f"[phase] chaos matrix, elastic and sharded restore, supervised "
         f"kill: {time.time() - t:.1f} s")
     t = time.time()
     moe = training_path(torch, args, device, ops, MOE_ARCH, "moe", MOE_DIR,
-                        donate=True, ranges=MOE_RANGES)
-    log(f"[phase] checkpointed MoE training: {time.time() - t:.1f} s")
+                        donate=True, ranges=MOE_RANGES, layers=MOE_LAYERS)
+    log(f"[phase] checkpointed MoE training ({MOE_LAYERS} of 32 layers): "
+        f"{time.time() - t:.1f} s")
+    t = time.time()
+    mla = mla_path(torch, args, device, ops)
+    log(f"[phase] MLA serve and resume: {time.time() - t:.1f} s")
+    log(f"[phase] all phases, the build included: "
+        f"{time.time() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2317,7 +2474,7 @@ def main() -> None:
              "objstore": obj["launches"], "serve": serve_launches,
              "chaos": chaos["launches"],
              "supervised": chaos["worker_launches"],
-             "moe": moe["launches"]}
+             "moe": moe["launches"], "mla": mla["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2344,7 +2501,7 @@ def main() -> None:
                                "objstore": obj["depth"], "serve": 22,
                                "chaos": None,
                                "supervised": chaos["supervised_layers"],
-                               "moe": moe["layers"]}})
+                               "moe": moe["layers"], "mla": mla["layers"]}})
         if "at_moe_shape" in r:          # flashattn at phase 9's shape
             kernels[-1]["at_moe_shape"] = r["at_moe_shape"]
     log(json.dumps({"kernels": kernels}))

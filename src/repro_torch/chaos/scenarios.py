@@ -180,6 +180,17 @@ def _cluster_backends(workdir: str, backend: str, world: int = WORLD):
     return cluster, cfg, backends, kw
 
 
+def _join_uploads(b) -> None:
+    """Wait for the chunk puts that a failed L4 store left queued.  The
+    store fails at its first failed put; the others run on the uploader's
+    threads, and each fires a fault only while the outage lasts.  Joining
+    them before the scenario goes on makes its fault count independent of
+    thread timing."""
+    tier = b.engine.objstore_tier()
+    if tier is not None:
+        tier.uploader.close()
+
+
 def _restart_backend(cfg, comm, backend: str, kw):
     """A fresh backend over the same comm — the restarted process."""
     return make_backend(cfg, comm, backend, **kw)
@@ -348,6 +359,7 @@ def objstore_outage(workdir: str, backend: str, device) -> ScenarioResult:
     except Exception:
         # some backends wrap the tier error at the wait fence
         store_degraded = True
+    _join_uploads(b)
     # catalog fallback: discovery + restore must still work mid-outage
     t0 = time.time()
     b_mid = _restart_backend(cfg, comm, backend, kw)
@@ -442,6 +454,7 @@ def node_loss_during_outage(workdir: str, backend: str, device) -> ScenarioResul
         backends[3].tcl_wait()
     except Exception:
         store_degraded = True
+    _join_uploads(backends[3])
     cluster.kill_node(2)                      # second fault, same window
     t0 = time.time()
     b2 = _restart_backend(cfg, cluster.comms[2], backend, kw)

@@ -43,7 +43,7 @@ def next_batch(
     if cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder batches are not ported yet "
-            f"(ROADMAP Queue 1, item 2: whisper-small)")
+            f"(ROADMAP Queue 1, item 2.4: whisper-small)")
     seed = int(state.seed) & 0xFFFFFFFF
     gen = torch.Generator().manual_seed(
         (seed << 32) | (int(state.position) & 0xFFFFFFFF))

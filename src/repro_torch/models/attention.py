@@ -1,5 +1,5 @@
-"""Attention: GQA (+qkv bias), sliding window, and one-token decode with a
-KV cache.
+"""Attention: GQA (+qkv bias), sliding window, MLA, and one-token decode
+with a KV cache or an MLA latent cache.
 
 The PyTorch counterpart of ``repro.models.attention``.  Tensors are
 (batch, seq, heads, head_dim); scores and softmax are f32.
@@ -18,9 +18,19 @@ scores cover the cache's valid prefix (``min(pos + 1, C)`` slots: the
 slots the reference's mask keeps) and read the grouped KV heads in place,
 without repeating them.
 
-The reference's sharding hints are dropped: one device needs none.  MLA
-and cross-attention raise: they come with the MLA and encoder-decoder
-models (ROADMAP Queue 1, item 2).
+MLA (Multi-head Latent Attention) trains and prefills in the naive form
+(:func:`mla_attention`: K/V materialized from the latent, q/k of
+``qk_nope + qk_rope`` dims and v of ``v_head_dim``, always through
+:func:`blockwise_attention`, as in the reference, whatever
+``REPRO_ATTN_IMPL`` says) and decodes in the absorbed form
+(:func:`mla_decode`): the cache holds the latent ``c_kv`` and the shared
+rotary key ``k_rope``, ``W_uk`` is folded into the query and ``W_uv``
+applied after the latent average.  Decode writes the new rows in place and
+attends over the valid prefix, as :func:`gqa_decode` does.
+
+The reference's sharding hints are dropped: one device needs none.
+Cross-attention raises: it comes with the encoder-decoder models (ROADMAP
+Queue 1, item 2.4).
 """
 from __future__ import annotations
 
@@ -37,7 +47,6 @@ from repro_torch.models.layers import apply_rope, dense_init
 Params = Dict[str, Any]
 
 _NEG_INF = -1e30
-_MLA = "ROADMAP Queue 1, item 2 (MLA: minicpm3-4b)"
 
 
 def _attn_impl() -> str:
@@ -66,10 +75,25 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    m = cfg.mla
+    assert m is not None
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "w_dq": dense_init(gen, d, m.q_lora_rank, dtype),
+        "w_uq": dense_init(gen, m.q_lora_rank, h * qk, dtype),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank, dtype),
+        "w_kr": dense_init(gen, d, m.qk_rope_dim, dtype),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_dim, dtype),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dtype),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dtype),
+    }
+
+
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"MLA attention is not ported yet ({_MLA})")
+        return init_mla(gen, cfg, dtype)
     return init_gqa(gen, cfg, dtype)
 
 
@@ -149,7 +173,7 @@ def gqa_attention(
     if kv_override is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet (the encoder-decoder models "
-            "of ROADMAP Queue 1, item 2)")
+            "of ROADMAP Queue 1, item 2.4)")
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -251,26 +275,126 @@ def gqa_decode(
 
 
 # --------------------------------------------------------------------------- #
+# MLA (Multi-head Latent Attention)
+# --------------------------------------------------------------------------- #
+
+
+def mla_attention(
+    p: Params,
+    x: torch.Tensor,              # (B, S, d)
+    cfg: ArchConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Training/prefill MLA in the naive (materialized K/V) form."""
+    m = cfg.mla
+    assert m is not None
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    pos = positions if positions is not None else \
+        torch.arange(s, device=x.device)[None, :]
+
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, h, qk)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+
+    c_kv = x @ p["w_dkv"]                                   # (B, S, r)
+    k_rope = apply_rope((x @ p["w_kr"]).reshape(b, s, 1, m.qk_rope_dim),
+                        pos, cfg.rope_theta)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_dim)
+    vv = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
+                       dim=-1)
+    out = blockwise_attention(q_full, k_full, vv, causal=True)
+    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor            # (B, C, r)         latent cache
+    k_rope: torch.Tensor          # (B, C, rope_dim)
+
+
+def init_mla_cache(batch: int, cfg: ArchConfig, max_len: int, dtype,
+                   device="cuda") -> MLACache:
+    m = cfg.mla
+    assert m is not None
+    return MLACache(
+        torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype,
+                    device=device))
+
+
+def mla_decode(
+    p: Params,
+    x: torch.Tensor,              # (B, 1, d)
+    cache: MLACache,
+    pos,                          # int (or 0-d tensor) — current position
+    cfg: ArchConfig,
+) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-form MLA decode: attend over the latents with ``W_uk``
+    folded into the query → (out (B, 1, d), the same cache with slot
+    ``pos`` written in place).  The two score products are added in the
+    compute dtype and only then cast to f32, as in the reference."""
+    m = cfg.mla
+    assert m is not None
+    pos = int(pos)
+    b = x.shape[0]
+    h, r = cfg.n_heads, m.kv_lora_rank
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    scale = float(1.0 / torch.tensor(float(qk)).sqrt())
+    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, 1, h, qk)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, pos_b, cfg.rope_theta)
+    # fold W_uk: q_abs[h, r] = q_nope[h, n] · W_uk[r, h, n]
+    w_uk = p["w_uk"].reshape(r, h, m.qk_nope_dim)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)   # (B, H, r)
+
+    c_new = x @ p["w_dkv"]                                     # (B, 1, r)
+    kr_new = apply_rope((x @ p["w_kr"]).reshape(b, 1, 1, m.qk_rope_dim),
+                        pos_b, cfg.rope_theta)
+    cache.c_kv[:, pos] = c_new[:, 0]
+    cache.k_rope[:, pos] = kr_new[:, 0, 0]
+    c_kv = cache.c_kv[:, :pos + 1]      # the slots the reference's mask keeps
+    k_rope = cache.k_rope[:, :pos + 1]
+
+    sc = torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
+    sc = sc + torch.einsum("bhe,bse->bhs", q_rope[:, 0], k_rope)
+    sc = sc.float() * scale
+    probs = torch.softmax(sc, dim=-1).to(c_kv.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv)          # (B, H, r)
+    w_uv = p["w_uv"].reshape(r, h, m.v_head_dim)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).reshape(
+        b, 1, h * m.v_head_dim)
+    return o @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
 # dispatch helpers
 # --------------------------------------------------------------------------- #
 
 
 def attention(p, x, cfg: ArchConfig, **kw):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"MLA attention is not ported yet ({_MLA})")
+        kw.pop("causal", None)
+        kw.pop("use_rope", None)
+        return mla_attention(p, x, cfg, **kw)
     return gqa_attention(p, x, cfg, **kw)
 
 
 def init_decode_cache(batch: int, cfg: ArchConfig, max_len: int, dtype,
                       device="cuda"):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"the MLA decode cache is not ported yet ({_MLA})")
+        return init_mla_cache(batch, cfg, max_len, dtype, device)
     return init_kv_cache(batch, cfg, max_len, dtype, device)
 
 
 def attention_decode(p, x, cache, pos, cfg: ArchConfig):
     if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"MLA decode is not ported yet ({_MLA})")
+        return mla_decode(p, x, cache, pos, cfg)
     return gqa_decode(p, x, cache, pos, cfg)

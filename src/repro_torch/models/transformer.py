@@ -1,7 +1,7 @@
 """Decoder-only LM assembly: the ``("attn",)`` layer pattern, dense or MoE.
 
-The PyTorch counterpart of ``repro.models.transformer`` for GQA models
-with a dense or a Mixture-of-Experts MLP (``models/moe.py``).  Parameters
+The PyTorch counterpart of ``repro.models.transformer`` for GQA and MLA
+models with a dense or a Mixture-of-Experts MLP (``models/moe.py``).  Parameters
 keep the reference's layout, a dict with ``embed``, ``groups`` (a
 one-element list of layer dicts whose leaves are stacked along axis 0),
 ``ln_f`` and ``lm_head``, so every leaf path and shape of a checkpoint is
@@ -16,11 +16,13 @@ backward write a full-size zero tensor.  ``remat=True`` (the reference's
 ``torch.utils.checkpoint`` (non-reentrant).
 
 Decode keeps the reference's cache layout: ``init_caches`` gives one
-:class:`~repro_torch.models.attention.KVCache` per layer of the pattern,
-its leaves stacked ``(n_groups, B, C, KV, dh)``, so a serving state's
-leaf names and shapes (``caches/0/k``) are the reference's.
-``lm_decode_step`` writes each layer's new K/V row in place and returns
-the caches it was given.
+:class:`~repro_torch.models.attention.KVCache` (GQA: leaves stacked
+``(n_groups, B, C, KV, dh)``, ``caches/0/k``) or
+:class:`~repro_torch.models.attention.MLACache` (MLA: ``(n_groups, B, C,
+r)`` and ``(n_groups, B, C, rope_dim)``, ``caches/0/c_kv``) per layer of
+the pattern, so a serving state's leaf names and shapes are the
+reference's.  ``lm_decode_step`` writes each layer's new cache rows in
+place and returns the caches it was given.
 
 A MoE layer's router aux loss is summed over the layers, as in the
 reference.  SSM and hybrid layers are not ported yet and raise.
@@ -52,7 +54,8 @@ from repro_torch.models.layers import (
 Params = Dict[str, Any]
 
 _LATER_ARCHS = ("is not ported yet: SSM and hybrid architectures are "
-                "the later architectures of ROADMAP Queue 1, item 2")
+                "ROADMAP Queue 1, item 2.3 (encoder-decoder, item 2.4, "
+                "follows)")
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -1,7 +1,8 @@
 """Model zoo: uniform entry points over the ported architectures.
 
 The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs with
-dense or Mixture-of-Experts MLPs (``family`` ``dense``, ``vlm``, ``moe``):
+GQA or MLA attention and dense or Mixture-of-Experts MLPs (``family``
+``dense``, ``vlm``, ``moe``):
 
   init(gen)                      → params on ``gen.device``
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
@@ -9,8 +10,8 @@ dense or Mixture-of-Experts MLPs (``family`` ``dense``, ``vlm``, ``moe``):
   decode_step(params, token, caches, pos) → (logits, caches)
 
 ``decode_step`` updates the caches in place and returns them.
-Encoder-decoder models are a later slice and raise; SSM, hybrid and MLA
-models raise from ``init`` (``models/transformer.py``, ``attention.py``).
+Encoder-decoder models are a later slice and raise; SSM and hybrid
+models raise from ``init`` (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def build_model(cfg: ArchConfig) -> Model:
     if cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP "
-            f"Queue 1, item 2: whisper-small)")
+            f"Queue 1, item 2.4: whisper-small)")
     return Model(
         cfg=cfg,
         init=functools.partial(lm_mod.init_lm, cfg=cfg),

@@ -9,6 +9,7 @@ device it is given; this file asserts the harness contract — bit-exact
 restores, machine-readable reports, and zero data loss everywhere.
 """
 import json
+from concurrent.futures import wait
 
 import numpy as np
 import pytest
@@ -94,11 +95,31 @@ def test_payloads_equal_the_reference_payloads():
             assert g.tobytes() == np.asarray(want[k]).tobytes()
 
 
-def test_recovery_paths_equal_the_reference_matrix(tmp_path):
+def _joined(result):
+    """``PendingFile.result`` that joins every transfer before it raises
+    the first failure."""
+    def joined(self):
+        wait(self.futures)
+        return result(self)
+    return joined
+
+
+def test_recovery_paths_equal_the_reference_matrix(tmp_path, monkeypatch):
     """Every cell takes the recovery path, and fires the faults, that the
-    JAX package's matrix does for the same cell."""
+    JAX package's matrix does for the same cell.
+
+    During an object-store outage every chunk put of the degraded store
+    fails.  The store reports its first failed put at once, and a put
+    still queued then may run after the scenario lifts the outage and
+    succeed: the count would depend on thread timing.  The port's
+    scenarios join those puts before they go on (``_join_uploads``); the
+    reference's uploads are joined here before they report, so every put
+    fires in both packages and the equality is exact."""
     from repro.chaos import inject as ref_chaos
     from repro.chaos.scenarios import run_matrix as ref_matrix
+    from repro.objstore import chunks as ref_chunks
+    monkeypatch.setattr(ref_chunks.PendingFile, "result",
+                        _joined(ref_chunks.PendingFile.result))
     mine = run_matrix(str(tmp_path / "torch"), device="cpu")
     ref_chaos.reset()
     try:

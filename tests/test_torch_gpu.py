@@ -741,3 +741,123 @@ def test_donated_adamw_on_card_is_bit_equal_to_functional():
         assert a["params/embed"].is_cuda
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def _minicpm3_two_layers():
+    """minicpm3-4b at its published widths (MLA: q_lora 768, kv_lora 256,
+    qk nope/rope 64/32, v_head 64, 40 heads), two layers, f32 compute, and
+    its parameters on the CPU and on the card (the same values)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(get_arch("minicpm3-4b"), n_layers=2,
+                              compute_dtype="float32")
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0))
+    on_card = unflatten_named({k: v.cuda() for k, v in
+                               flatten_named(params).items()}, params)
+    return cfg, m, params, on_card
+
+
+@pytest.mark.gpu
+def test_mla_forward_backward_at_full_width_on_card_matches_the_cpu(
+        monkeypatch):
+    """Two layers of minicpm3-4b at full width, f32 compute, 256 tokens,
+    forward and backward (the naive MLA form): the card's loss within 1e-5
+    relative of the CPU's and each parameter's gradient within 1e-3 of
+    that leaf's largest CPU gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.models.layers import softmax_cross_entropy
+    monkeypatch.setenv("REPRO_ATTN_IMPL", "flash")   # MLA runs blockwise
+    cfg, m, params, on_card = _minicpm3_two_layers()
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses, grads = [], []
+        for p, dev in ((params, "cpu"), (on_card, "cuda")):
+            leaves = flatten_named(p)
+            for v in leaves.values():
+                v.requires_grad_(True)
+            t = toks.to(dev)
+            logits, _ = m.forward(p, {"tokens": t[:, :-1]})
+            loss = softmax_cross_entropy(logits, t[:, 1:]).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({k: v.grad.cpu() for k, v in leaves.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert "groups/0/attn/w_uk" in grads[0]
+    for k, g in grads[0].items():
+        bound = 1e-3 * float(g.abs().max())
+        assert float((grads[1][k] - g).abs().max()) <= bound, k
+
+
+@pytest.mark.gpu
+def test_mla_decode_on_card_matches_the_cpu():
+    """lm_decode_step of two minicpm3-4b layers at full width on the card
+    against the CPU, f32 compute, 8 steps into a 16-slot latent cache:
+    logits within 1e-4 and both cache leaves within 1e-5; no flash
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named
+    cfg, m, params, on_card = _minicpm3_two_layers()
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    c_cpu = m.init_caches(2, 16, device="cpu")
+    c_gpu = m.init_caches(2, 16, device="cuda")
+    ops.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for i in range(8):
+                a, c_cpu = m.decode_step(params, toks[:, i:i + 1], c_cpu, i)
+                b, c_gpu = m.decode_step(on_card, toks[:, i:i + 1].cuda(),
+                                         c_gpu, i)
+                assert float((a - b.cpu()).abs().max()) <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = flatten_named(c_gpu)
+    assert sorted(got) == ["0/c_kv", "0/k_rope"]
+    for k, x in flatten_named(c_cpu).items():
+        assert got[k].is_cuda and float((x - got[k].cpu()).abs().max()) \
+            <= 1e-5
+    assert ops.launch_counts()["flashattn"] == 0
+
+
+@pytest.mark.gpu
+def test_blockhash2_on_the_narrow_mla_cache_leaf_on_card():
+    """minicpm3-4b's k_rope cache leaf at its serving shape (62, 4, 2048,
+    32) bf16, 64-byte rows: blockhash2 equals blockhash2_ref bit for bit,
+    and the blocks 16 decode positions dirty pack and scatter back into a
+    cold leaf through diffpack / diffunpack bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(62)
+    x = torch.randn(62, 4, 2048, 32, generator=g, device="cuda").bfloat16()
+    bb = 65_536
+    words, n = ops.as_u32_blocks(x, bb)
+    assert torch.equal(bh.blockhash2(x, bb), ref.blockhash2_ref(words))
+    row = 32 * x.element_size()
+    idx = sorted({(s * 2048 + p) * row // bb for s in range(62 * 4)
+                  for p in range(128, 144)})
+    assert len(idx) == 248 and max(idx) < n
+    idx = np.asarray(idx, np.int32)
+    rows = dp.diffpack_many([x], [idx], bb)
+    assert torch.equal(rows, ref.diffpack_ref(
+        words, torch.from_numpy(idx.astype(np.int64)).cuda()))
+    cold = torch.zeros_like(x)
+    dp.diffunpack_many([cold], [idx], rows, bb)
+    torch.cuda.synchronize()
+    sel = torch.from_numpy(idx.astype(np.int64)).cuda()
+    want = torch.zeros_like(words)
+    want[sel] = words[sel]
+    assert torch.equal(ops.as_u32_blocks(cold, bb)[0], want)

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither jax nor any module
 of the JAX package ``repro``, and its main paths (directives, training,
 a reduced MoE model's forward and donated step, serving and deploy, a
-chaos scenario cell and an elastic restore) run with jax absent — as
+reduced MLA model's decode step, served and its state stored, a chaos
+scenario cell and an elastic restore) run with jax absent — as
 ``chip_smoke.py`` drives them, which also refuses to run without a
 card."""
 import ast
@@ -127,6 +128,31 @@ assert dep.run_until_converged()["action"] == "converged"
 assert eng.weights.entry_id == 1 and torch.equal(eng.params["embed"],
                                                   params["embed"])
 assert eng.generate(2).shape == (2, 2)
+# MLA: a reduced minicpm3's absorbed-form decode over its latent cache,
+# served and its ServeState stored and restored
+ccfg = get_arch("minicpm3-4b").reduced()
+cm = build_model(ccfg)
+cparams = cm.init(torch.Generator().manual_seed(4))
+cc = cm.init_caches(2, 16, device="cpu")
+clog, cc2 = cm.decode_step(cparams, torch.ones((2, 1), dtype=torch.int32),
+                           cc, 0)
+assert cc2 is cc and bool(cc[0].c_kv[:, :, 0].any()) and \
+    not bool(cc[0].c_kv[:, :, 1:].any())
+assert clog.shape == (2, 1, ccfg.vocab_size)
+ceng = ServingEngine(cm, cparams, batch=2, max_len=16)
+ceng.prefill(torch.randint(0, ccfg.vocab_size, (2, 4), dtype=torch.int32))
+ceng.generate(3)
+ctx9 = CheckpointContext(CheckpointConfig(dir=d + "/mla", backend="fti",
+                                          objstore=False))
+ctx9.store(ceng.get_state(), id=7, level=1)
+ctx9.shutdown()
+ctx10 = CheckpointContext(CheckpointConfig(dir=d + "/mla", objstore=False))
+cback = ctx10.load(ServeState(cm.init_caches(2, 16, device="cpu"),
+                              torch.tensor(0, dtype=torch.int32),
+                              torch.zeros((2, 1), dtype=torch.int32)))
+ctx10.shutdown()
+assert ctx10.restarted and torch.equal(cback.caches[0].k_rope,
+                                       ceng.state.caches[0].k_rope)
 # chaos: one scenario cell on the CPU, the CLI tools, an elastic restore
 import repro_torch.tools.chkls, repro_torch.tools.chktrace
 from repro_torch.chaos.scenarios import run_scenario
@@ -192,9 +218,9 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     the directive path (FULL, in-place update before the async tail, DIFF
     with the exact dirty count, promoted FULL, DIFF, restart), the
     checkpointed training (run A vs store, fault, restore, resume) on a
-    reduced config, serving and deploy, and phase 8: the chaos matrix, the
+    reduced config, serving and deploy, phase 8: the chaos matrix, the
     elastic rescale, the sharded directive restore with its fall back, and
-    the supervised kill."""
+    the supervised kill, and phase 10: MLA served and resumed."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
          "--width-div", "16", "--block-bytes", "256"],
@@ -202,7 +228,10 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "dirty blocks: store 2" in out.stdout
     assert "resumed TrainState equals run A's bit for bit" in out.stdout
-    assert "final ServeState equal run A's bit for bit" in out.stdout
+    # phase 7 (tinyllama) and phase 10 (MLA: minicpm3's latent cache)
+    assert out.stdout.count("final ServeState equal run A's bit for bit") \
+        == 2
+    assert "[mla] restore:" in out.stdout
     assert "generates the 4 tokens of an engine built on" in out.stdout
     assert "[chaos] matrix on cpu: 24/24 passed, data loss 0 B" in out.stdout
     assert "new world 3: every rank's rows on cpu equal" in out.stdout

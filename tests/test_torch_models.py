@@ -307,18 +307,22 @@ def test_lm_forward_bf16_matches_reference(monkeypatch):
 
 def test_unported_architectures_raise():
     gen = torch.Generator().manual_seed(0)
-    # the MoE layer is ported: mixtral builds, and jamba raises for its
-    # mamba layer
+    # the MoE layer and MLA are ported: mixtral and minicpm3 build, and
+    # jamba raises for its mamba layer
     assert "groups/0/moe/router" in flatten_named(
         build_model(get_arch("mixtral-8x7b").reduced()).init(gen))
+    assert "groups/0/attn/w_uk" in flatten_named(
+        build_model(get_arch("minicpm3-4b").reduced()).init(gen))
     for name, match in (("rwkv6-3b", "the rwkv6 layer"),
-                        ("jamba-1.5-large-398b", "the mamba layer"),
-                        ("minicpm3-4b", "MLA")):
+                        ("jamba-1.5-large-398b", "the mamba layer")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(get_arch(name).reduced()).init(gen)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_arch("whisper-small").reduced())
-    # decode is ported for the dense models; MLA's cache is not
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(get_arch("minicpm3-4b").reduced()).init_caches(
-            2, 16, device="cpu")
+    # decode is ported for the dense and MLA models: MLA's latent cache
+    # builds
+    cfg = get_arch("minicpm3-4b").reduced()
+    caches = flatten_named(build_model(cfg).init_caches(2, 16, device="cpu"))
+    assert {k: tuple(v.shape) for k, v in caches.items()} == {
+        "0/c_kv": (2, 2, 16, cfg.mla.kv_lora_rank),
+        "0/k_rope": (2, 2, 16, cfg.mla.qk_rope_dim)}

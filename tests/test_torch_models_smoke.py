@@ -4,7 +4,7 @@ forward, one train step and one decode step on the CPU; output shapes and
 finiteness.  Incremental decode equals the teacher-forced forward for
 tinyllama, and the sliding-window mask keeps exactly the window.
 
-The architectures not ported yet (SSM, hybrid, MLA, encoder-decoder) must
+The architectures not ported yet (SSM, hybrid, encoder-decoder) must
 raise ``NotImplementedError``; every registered architecture is one or the
 other."""
 import numpy as np
@@ -22,7 +22,7 @@ from repro_torch.train.step import make_train_step
 
 BATCH, SEQ = 2, 32
 PORTED = ("tinyllama-1.1b", "llama3.2-3b", "codeqwen1.5-7b", "internvl2-1b",
-          "granite-moe-3b-a800m", "mixtral-8x7b")
+          "granite-moe-3b-a800m", "mixtral-8x7b", "minicpm3-4b")
 
 
 @pytest.fixture(scope="module")

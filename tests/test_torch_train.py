@@ -212,7 +212,10 @@ def test_next_batch_is_a_pure_function_of_the_cursor():
     pytest.param("codeqwen1.5-7b", "blockwise", 1, 1e-5,
                  id="codeqwen1.5-7b-blockwise-1"),
     pytest.param("internvl2-1b", "flash", 1, 1e-5,
-                 id="internvl2-1b-flash-1")])
+                 id="internvl2-1b-flash-1"),
+    # MLA: the naive form runs blockwise whatever REPRO_ATTN_IMPL says
+    pytest.param("minicpm3-4b", "flash", 1, 1e-6,
+                 id="minicpm3-4b-flash-1")])
 def test_train_step_matches_jax(monkeypatch, arch, attn_impl, microbatches,
                                 eps):
     """Same weights, batch and f32 compute: new params, mu, nu within 1e-6
