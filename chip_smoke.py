@@ -20,6 +20,8 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    (22, 4, 2048, 4, 64) KV leaves, phase 10's (62, 4, 2048, 256) latent
    and (62, 4, 2048, 32) rotary-key leaves, bf16) hashed, and the blocks
    16 decode positions dirty packed and scattered into a cold cache;
+   phase 11's recurrent state (the (32, 4, 40, 64, 64) f32 WKV state and
+   the (32, 4, 1, 2560) bf16 shift rows) hashed;
    ``flashattn`` against ``flash_attention_ref`` at
    tinyllama's attention shape (B 4, S 2048, 32 heads of 64) causal and
    not, and at S 256, and its grouped entry against
@@ -140,13 +142,26 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    phase must match the leaves hashed, the DIFF stores packed and the
    links replayed (``flashattn`` none).  No deploy runs here.
 
+11. RWKV6 served at full width: rwkv6-3b (arXiv:2404.05892: 32 layers,
+   d_model 2560, 40 WKV heads of 64, d_ff 8960, vocab 65536, untied; no
+   cut), f32 parameters made on the card, bf16 compute, deterministic,
+   as phase 10 with phase 7's batch, prompts, tokens, store cadence and
+   fault.  Its state is recurrent (``wkv`` (32, 4, 40, 64, 64) f32,
+   ``tm_shift`` and ``cm_shift`` (32, 4, 1, 2560) bf16: 85.2 MB, whatever
+   the cache length), and every decode step rewrites all of it: each
+   cadence store must find every block dirty and be promoted to a FULL,
+   the restore must read the newest FULL and replay no link, B's tokens
+   and final state must equal A's bit for bit, and the launches over the
+   phase must be ``blockhash2`` once per store and card leaf and no
+   ``diffpack``, ``diffunpack`` or ``flashattn``.
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6, 7, 8, 9 and 10 on the CPU with the plain
-versions (phases 5, 7, 9, 10 and 8's supervised kill on a reduced config)
-and prints no result.
+rehearses phases 3, 5, 6, 7, 8, 9, 10 and 11 on the CPU with the plain
+versions (phases 5, 7, 9, 10, 11 and 8's supervised kill on a reduced
+config) and prints no result.
 """
 from __future__ import annotations
 
@@ -689,6 +704,15 @@ def check_kernels(torch, device, ops, ref, bh, dp):
                      [(torch.zeros_like(x), i, rows[a:b])
                       for (x, i), a, b in zip(serve, cut[:-1], cut[1:])])
         del serve, rows
+    # phase 11's recurrent state (rwkv6-3b): the f32 WKV state and both
+    # bf16 token-shift rows, hashed; every step rewrites every block, so
+    # its stores are promoted to FULL and pack nothing
+    for name, m in flatten_named(build_model(get_arch(SSM_ARCH)).cache_struct(
+            SERVE_BATCH, SERVE_MAX_LEN)).items():
+        x = torch.randn(m.shape, generator=gen, device=device).to(m.dtype)
+        hash_case(f"{SSM_ARCH} state leaf {name} {tuple(x.shape)} {x.dtype}",
+                  x)
+        del x
     try:
         dp.diffunpack_many([torch.zeros(64, 64, device=device).t()],
                            [np.zeros(1, np.int32)],
@@ -1687,6 +1711,17 @@ def cache_dirty_blocks(k, positions, block_bytes: int) -> list:
     return sorted(out)
 
 
+def state_dirty_blocks(caches, positions, block_bytes: int) -> int:
+    """Hash blocks of a decode state that the steps at ``positions``
+    rewrite: the rows at those positions of a KV or latent cache leaf
+    (:func:`cache_dirty_blocks`), every block of a recurrent state (RWKV,
+    Mamba), which each step rewrites whole."""
+    from repro_torch.models.attention import KVCache, MLACache
+    return sum(len(cache_dirty_blocks(x, positions, block_bytes))
+               if isinstance(c, (KVCache, MLACache))
+               else n_blocks(x, block_bytes) for c in caches for x in c)
+
+
 def cache_nbytes(model, batch: int, max_len: int) -> dict:
     """{cache leaf: bytes} of the model's decode cache (from its meta
     structure: no memory)."""
@@ -1700,14 +1735,20 @@ def serve_resume(torch, device, ops, model, handle, prompts, dims, bb: int,
     """Serve and resume one model.  Run A prefills and generates ``gen_n``
     tokens uninterrupted (one more decode step profiled on the card); run B
     stores a FULL ServeState after prefill (FTI, level 1, CP-dedicated
-    thread) and a DIFF every ``every`` tokens, each with the dirty-block
-    count the written positions give, faults after ``fault``, restores into
-    a cold cache on the device (the DIFF chain replayed there) and
-    generates on; both must agree bit for bit.  ``dims``: (max_len, gen_n,
-    every, fault).  → {"st_prefill": the state after prefill, "n_dev":
-    ServeState leaves on the device, "diffs": DIFF stores, "replayed":
-    diffunpack launches of the restore}"""
-    from repro_torch.core.context import (CHK_DIFF, CheckpointConfig,
+    thread) and a DIFF every ``every`` tokens, faults after ``fault``,
+    restores into a cold cache on the device (the DIFF chain after the
+    newest FULL replayed there) and generates on; both must agree bit for
+    bit.  Each cadence store's dirty-block count must be the one the model
+    rewrote (:func:`state_dirty_blocks`): a store whose count passes the
+    pipeline's promote threshold must be promoted and committed as a FULL,
+    any other must be a DIFF.  ``dims``: (max_len, gen_n, every, fault).
+    → {"st_prefill": the state after prefill, "n_dev": ServeState leaves
+    on the device, "stores": stores made, "diffs": stores committed as
+    DIFF, "promoted": cadence stores promoted to FULL, "links": DIFF links
+    after the newest FULL, "replayed": diffunpack launches of the
+    restore}"""
+    from repro_torch.core.context import (CHK_DIFF, CHK_FULL,
+                                          CheckpointConfig,
                                           CheckpointContext)
     from repro_torch.core.formats import tensor_to_numpy
     from repro_torch.core.protect import flatten_named
@@ -1766,9 +1807,8 @@ def serve_resume(torch, device, ops, model, handle, prompts, dims, bb: int,
         toks_b.append(eng.generate(every))
         st = store(CHK_DIFF)
         moved = int(not torch.equal(st.last_token, prev.last_token))
-        want_dirty[int(st.pos)] = 1 + moved + sum(
-            len(cache_dirty_blocks(c, range(p0, p0 + every), bb))
-            for c in flatten_named(st.caches).values())
+        want_dirty[int(st.pos)] = 1 + moved + state_dirty_blocks(
+            st.caches, range(p0, p0 + every), bb)
         prev = st
     log(f"[{tag}] run B: fault after {fault} tokens (the engine and its "
         f"caches are dropped)")
@@ -1777,23 +1817,33 @@ def serve_resume(torch, device, ops, model, handle, prompts, dims, bb: int,
     ctx.shutdown()
     drain_s = time.time() - t
     by_id = {r.ckpt_id: r for r in reports}
-    diffs = sorted(want_dirty)
-    if sorted(by_id) != [prompt] + diffs or any(
-            by_id[i].kind != CHK_DIFF for i in diffs):
-        fail(f"run B committed {[(r.ckpt_id, r.kind) for r in reports]}")
-    for i in [prompt] + diffs:
+    cadence = sorted(want_dirty)
+    promote = {i: want_dirty[i] / total_blocks > ckpt_cfg.promote_threshold
+               for i in cadence}
+    want_kind = {prompt: CHK_FULL, **{
+        i: CHK_FULL if promote[i] else CHK_DIFF for i in cadence}}
+    if sorted(by_id) != [prompt] + cadence or any(
+            by_id[i].kind != k for i, k in want_kind.items()) or any(
+            by_id[i].promoted_full != promote[i] for i in cadence):
+        fail(f"run B committed {[(r.ckpt_id, r.kind, r.promoted_full) for r in reports]}, "
+             f"expected {want_kind} (promoted: {promote})")
+    for i in [prompt] + cadence:
         r = by_id[i]
         got = None if r.dirty_ratio is None else \
             round(r.dirty_ratio * total_blocks)
-        log(f"[{tag}] store {i}: kind={r.kind} bytes_payload="
-            f"{r.bytes_payload} plan_s={r.plan_seconds:.4f} store_call_s="
-            f"{blocked[i]:.4f} total_s={r.seconds:.4f}" + (
+        log(f"[{tag}] store {i}: kind={r.kind} promoted_full="
+            f"{r.promoted_full} bytes_payload={r.bytes_payload} plan_s="
+            f"{r.plan_seconds:.4f} store_call_s={blocked[i]:.4f} total_s="
+            f"{r.seconds:.4f}" + (
                 "" if got is None else
-                f" dirty blocks {got} (expected {want_dirty[i]})"))
+                f" dirty blocks {got} of {total_blocks} (expected "
+                f"{want_dirty[i]})"))
         if got is not None and got != want_dirty[i]:
-            fail(f"{tag} DIFF {i}: {got} dirty blocks, expected "
-                 f"{want_dirty[i]} from the positions written")
+            fail(f"{tag} store {i}: {got} dirty blocks, expected "
+                 f"{want_dirty[i]} from what the model rewrote")
     log(f"[{tag}] shutdown waited {drain_s:.2f} s for the last tail")
+    fulls = [i for i in [prompt] + cadence if want_kind[i] == CHK_FULL]
+    links = sum(i > fulls[-1] for i in cadence)
 
     template = ServeState(model.init_caches(batch, max_len, device=device),
                           torch.tensor(0, dtype=torch.int32),
@@ -1824,11 +1874,13 @@ def serve_resume(torch, device, ops, model, handle, prompts, dims, bb: int,
     if bad:
         fail(f"{tag} run B's final ServeState differs from run A's: {bad}")
     del eng
-    log(f"[{tag}] restore: {restore_s:.3f} s (FULL + {len(diffs)} "
-        f"DIFF links into a cold cache on {device}, {replayed} diffunpack "
-        f"launches); run B's {gen_n} tokens and final ServeState equal run "
-        f"A's bit for bit")
-    return {"st_prefill": st_prefill, "diffs": len(diffs),
+    log(f"[{tag}] restore: {restore_s:.3f} s (the FULL at {fulls[-1]} + "
+        f"{links} DIFF links into a cold cache on {device}, {replayed} "
+        f"diffunpack launches); run B's {gen_n} tokens and final ServeState "
+        f"equal run A's bit for bit")
+    return {"st_prefill": st_prefill, "stores": 1 + len(cadence),
+            "diffs": sum(not promote[i] for i in cadence),
+            "promoted": sum(promote.values()), "links": links,
             "replayed": replayed,
             "n_dev": sum(x.device.type == device.type
                          for x in named.values())}
@@ -2004,7 +2056,7 @@ def serve_path(torch, args, device, ops) -> dict:
     want["blockhash2"] += 2 * n_param_leaves
     log(f"[serve] kernel launches over the phase: {launches} "
         f"(expected on the card: {want})")
-    if on_card and (launches != want or run["replayed"] != run["diffs"]):
+    if on_card and (launches != want or run["replayed"] != run["links"]):
         fail("phase 7 launch counts do not match the leaves hashed, the "
              "DIFF stores packed and the DIFF links replayed")
     return launches
@@ -2012,10 +2064,11 @@ def serve_path(torch, args, device, ops) -> dict:
 
 def serve_launches(run: dict) -> dict:
     """The launches :func:`serve_resume`'s stores and restore make on the
-    card: a hash of every card leaf of the ServeState per store, a pack
-    per DIFF store, an unpack per DIFF link replayed, no attention."""
-    return {"blockhash2": (1 + run["diffs"]) * run["n_dev"],
-            "diffpack": run["diffs"], "diffunpack": run["diffs"],
+    card: a hash of every card leaf of the ServeState per store (a
+    promoted store hashes once), a pack per store committed as DIFF, an
+    unpack per DIFF link replayed, no attention."""
+    return {"blockhash2": run["stores"] * run["n_dev"],
+            "diffpack": run["diffs"], "diffunpack": run["links"],
             "flashattn": 0}
 
 # --------------------------------------------------------------------------- #
@@ -2026,19 +2079,23 @@ MLA_ARCH = "minicpm3-4b"
 MLA_DIR = ROOT / "build" / "chip_smoke_mla"
 
 
-def mla_path(torch, args, device, ops) -> dict:
-    """Phase 10.  minicpm3-4b at its published widths serves and resumes
-    as phase 7's first half (:func:`serve_resume`, phase 7's batch, prompt,
-    cache length, tokens, DIFF cadence and fault) with its absorbed-form
-    decode over the latent cache.  → {"launches": counts over the phase,
-    "layers": its depth}"""
+def served_phase(torch, args, device, ops, arch: str, tag: str, root: Path,
+                 seed: int, phase: int, widths, state: str):
+    """Phases 10 and 11: ``arch`` at its published widths (reduced on the
+    CPU) serves and resumes as phase 7's first half (:func:`serve_resume`,
+    phase 7's batch, prompt, cache length, tokens, store cadence and
+    fault), f32 parameters made on the device from ``seed``, bf16
+    compute, deterministic on the card; the launches over the phase must
+    be :func:`serve_launches`'.  ``widths(cfg)``: the architecture's
+    widths, for the log; ``state``: what the ServeState's caches are.
+    → (cfg, serve_resume's result, the launches over the phase)"""
     from repro_torch.configs import get_arch
     from repro_torch.models.zoo import build_model
     from repro_torch.serve.engine import WeightsHandle
     from repro_torch.train.step import use_deterministic_algorithms
 
     on_card = device.type == "cuda"
-    cfg = get_arch(MLA_ARCH)
+    cfg = get_arch(arch)
     batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
     gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
     if not on_card:                                  # the CPU rehearsal
@@ -2048,43 +2105,87 @@ def mla_path(torch, args, device, ops) -> dict:
         use_deterministic_algorithms()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    m = cfg.mla
     model = build_model(cfg)
     handle = WeightsHandle(params=model.init(
-        torch.Generator(device=device).manual_seed(SEED + 12)))
+        torch.Generator(device=device).manual_seed(seed)))
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                            generator=torch.Generator().manual_seed(SEED + 13),
+                            generator=torch.Generator().manual_seed(seed + 1),
                             dtype=torch.int32).to(device)
     leaves = cache_nbytes(model, batch, max_len)
-    log(f"[mla] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads; MLA q_lora {m.q_lora_rank}, kv_lora "
-        f"{m.kv_lora_rank}, qk nope/rope {m.qk_nope_dim}/{m.qk_rope_dim}, "
-        f"v_head {m.v_head_dim}; d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{widths(cfg)}; d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
         f"{cfg.param_count():,} parameters in {cfg.param_dtype}, "
         f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
-        f"tokens, max_len {max_len}: latent cache "
-        f"{sum(leaves.values()) / 1e6:.1f} MB (" + ", ".join(
-            f"{k} {v / 1e6:.1f} MB" for k, v in leaves.items()) + ")")
-    shutil.rmtree(MLA_DIR, ignore_errors=True)
-    MLA_DIR.mkdir(parents=True)
+        f"tokens, max_len {max_len}: {state} "
+        f"{sum(leaves.values()) / 1e6:.2f} MB (" + ", ".join(
+            f"{k} {v / 1e6:.2f} MB" for k, v in leaves.items()) + ")")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
     ops.reset_launch_counts()
     run = serve_resume(torch, device, ops, model, handle, prompts,
                        (max_len, gen_n, every, fault), args.block_bytes,
-                       "mla", MLA_DIR)
+                       tag, root)
     del handle, run["st_prefill"]
     sync(torch, device)
     launches = ops.launch_counts()
-    shutil.rmtree(MLA_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
     if on_card:
         torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
     want = serve_launches(run)
-    log(f"[mla] kernel launches over the phase: {launches} (expected on "
+    log(f"[{tag}] kernel launches over the phase: {launches} (expected on "
         f"the card: {want}); max_memory_allocated {peak:.2f} GB")
-    if on_card and (launches != want or run["replayed"] != run["diffs"]):
-        fail("phase 10 launch counts do not match the leaves hashed, the "
-             "DIFF stores packed and the DIFF links replayed")
+    if on_card and (launches != want or run["replayed"] != run["links"]):
+        fail(f"phase {phase} launch counts do not match the leaves hashed, "
+             f"the DIFF stores packed and the DIFF links replayed")
+    return cfg, run, launches
+
+
+def mla_path(torch, args, device, ops) -> dict:
+    """Phase 10.  minicpm3-4b (:func:`served_phase`) decodes in the
+    absorbed form over its latent cache.  → {"launches": counts over the
+    phase, "layers": its depth}"""
+    def widths(cfg):
+        m = cfg.mla
+        return (f"{cfg.n_heads} heads; MLA q_lora {m.q_lora_rank}, kv_lora "
+                f"{m.kv_lora_rank}, qk nope/rope {m.qk_nope_dim}/"
+                f"{m.qk_rope_dim}, v_head {m.v_head_dim}")
+
+    cfg, _, launches = served_phase(torch, args, device, ops, MLA_ARCH,
+                                    "mla", MLA_DIR, SEED + 12, 10, widths,
+                                    "latent cache")
+    return {"launches": launches, "layers": cfg.n_layers}
+
+# --------------------------------------------------------------------------- #
+# phase 11: RWKV6 served at full width, its recurrent state checkpointed
+# --------------------------------------------------------------------------- #
+
+SSM_ARCH = "rwkv6-3b"
+SSM_DIR = ROOT / "build" / "chip_smoke_ssm"
+
+
+def ssm_path(torch, args, device, ops) -> dict:
+    """Phase 11.  rwkv6-3b (:func:`served_phase`) decodes over its
+    recurrent state, whose every block each step rewrites: each cadence
+    store must be promoted to a FULL, and the restore must read the
+    newest FULL with no link to replay.  → {"launches": counts over the
+    phase, "layers": its depth}"""
+    def widths(cfg):
+        return f"{cfg.d_model // cfg.ssm.head_dim} WKV heads of " \
+            f"{cfg.ssm.head_dim}"
+
+    cfg, run, launches = served_phase(torch, args, device, ops, SSM_ARCH,
+                                      "ssm", SSM_DIR, SEED + 14, 11, widths,
+                                      "recurrent state (whatever max_len)")
+    cadence = run["stores"] - 1
+    if run["promoted"] != cadence or run["links"] or run["replayed"]:
+        fail(f"phase 11: {run['promoted']} of {cadence} cadence stores "
+             f"promoted, {run['links']} DIFF links after the newest FULL, "
+             f"{run['replayed']} replayed: a recurrent state must promote "
+             f"every store and replay none")
+    log(f"[ssm] every cadence store promoted to FULL ({cadence}); the "
+        f"restore read the newest FULL and replayed no link")
     return {"launches": launches, "layers": cfg.n_layers}
 
 # --------------------------------------------------------------------------- #
@@ -2390,6 +2491,7 @@ def main() -> None:
         training_path(torch, args, torch.device("cpu"), ops, MOE_ARCH, "moe",
                       MOE_DIR, donate=True)
         mla_path(torch, args, torch.device("cpu"), ops)
+        ssm_path(torch, args, torch.device("cpu"), ops)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -2457,6 +2559,9 @@ def main() -> None:
     t = time.time()
     mla = mla_path(torch, args, device, ops)
     log(f"[phase] MLA serve and resume: {time.time() - t:.1f} s")
+    t = time.time()
+    ssm = ssm_path(torch, args, device, ops)
+    log(f"[phase] RWKV6 serve and resume: {time.time() - t:.1f} s")
     log(f"[phase] all phases, the build included: "
         f"{time.time() - t_start:.1f} s")
 
@@ -2474,7 +2579,8 @@ def main() -> None:
              "objstore": obj["launches"], "serve": serve_launches,
              "chaos": chaos["launches"],
              "supervised": chaos["worker_launches"],
-             "moe": moe["launches"], "mla": mla["launches"]}
+             "moe": moe["launches"], "mla": mla["launches"],
+             "ssm": ssm["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2501,7 +2607,8 @@ def main() -> None:
                                "objstore": obj["depth"], "serve": 22,
                                "chaos": None,
                                "supervised": chaos["supervised_layers"],
-                               "moe": moe["layers"], "mla": mla["layers"]}})
+                               "moe": moe["layers"], "mla": mla["layers"],
+                               "ssm": ssm["layers"]}})
         if "at_moe_shape" in r:          # flashattn at phase 9's shape
             kernels[-1]["at_moe_shape"] = r["at_moe_shape"]
     log(json.dumps({"kernels": kernels}))

@@ -56,6 +56,19 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(dt)
 
 
+def groupnorm_heads(x: torch.Tensor, n_heads: int, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """GroupNorm with one group per head over the last dim (RWKV wkv
+    output), in f32; the variance is the population one (``jnp.var``)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x32 = x.float().reshape(*lead, n_heads, d // n_heads)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.reshape(*lead, d).to(dt)
+
+
 # --------------------------------------------------------------------------- #
 # activations / MLP
 # --------------------------------------------------------------------------- #

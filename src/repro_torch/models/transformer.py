@@ -1,31 +1,41 @@
-"""Decoder-only LM assembly: the ``("attn",)`` layer pattern, dense or MoE.
+"""Decoder-only LM assembly (dense / MoE / MLA / SSM / hybrid layers).
 
-The PyTorch counterpart of ``repro.models.transformer`` for GQA and MLA
-models with a dense or a Mixture-of-Experts MLP (``models/moe.py``).  Parameters
-keep the reference's layout, a dict with ``embed``, ``groups`` (a
-one-element list of layer dicts whose leaves are stacked along axis 0),
-``ln_f`` and ``lm_head``, so every leaf path and shape of a checkpoint is
-the same in both packages (``params/groups/0/attn/wq`` is
-``(n_layers, d, H·dh)``, ``params/groups/0/moe/moe_w_gate``
-``(n_layers, E, d, f)``).  Plain functions run over that dict.
+The PyTorch counterpart of ``repro.models.transformer``.  Parameters keep
+the reference's layout, a dict with ``embed``, ``groups`` (one layer dict
+per kind of the layer pattern, whose leaves are stacked along axis 0 over
+the pattern's repetitions), ``ln_f`` and ``lm_head``, so every leaf path
+and shape of a checkpoint is the same in both packages
+(``params/groups/0/attn/wq`` is ``(n_groups, d, H·dh)``,
+``params/groups/0/moe/moe_w_gate`` ``(n_groups, E, d, f)``,
+``params/groups/0/mixer/wk`` of an RWKV6 layer).  Plain functions run over
+that dict.  The layer kinds are ``attn`` (GQA or MLA, with a dense or a
+Mixture-of-Experts MLP, ``models/moe.py``), ``mamba`` (with an MLP or
+MoE) and ``rwkv6`` (whose channel mix is its MLP), ``models/ssm.py``; a
+hybrid (jamba) repeats its ``hybrid_pattern``.
 
 The stacked leaves are split into per-layer views with one ``unbind(0)``
 per forward: indexing ``w[i]`` once per layer would make each layer's
 backward write a full-size zero tensor.  ``remat=True`` (the reference's
-``jax.checkpoint`` of the group body) checkpoints each layer with
+``jax.checkpoint`` of the group body) checkpoints each group with
 ``torch.utils.checkpoint`` (non-reentrant).
 
 Decode keeps the reference's cache layout: ``init_caches`` gives one
-:class:`~repro_torch.models.attention.KVCache` (GQA: leaves stacked
-``(n_groups, B, C, KV, dh)``, ``caches/0/k``) or
-:class:`~repro_torch.models.attention.MLACache` (MLA: ``(n_groups, B, C,
-r)`` and ``(n_groups, B, C, rope_dim)``, ``caches/0/c_kv``) per layer of
-the pattern, so a serving state's leaf names and shapes are the
-reference's.  ``lm_decode_step`` writes each layer's new cache rows in
-place and returns the caches it was given.
+state per kind of the pattern, its leaves stacked ``(n_groups, B, …)`` in
+the NamedTuple's field order: a
+:class:`~repro_torch.models.attention.KVCache` (GQA: ``(n_groups, B, C,
+KV, dh)``, ``caches/0/k``), an
+:class:`~repro_torch.models.attention.MLACache` (``(n_groups, B, C, r)``
+and ``(n_groups, B, C, rope_dim)``, ``caches/0/c_kv``), an
+:class:`~repro_torch.models.ssm.RWKVState` (``caches/0/tm_shift``,
+``cm_shift``, ``wkv``) or a :class:`~repro_torch.models.ssm.MambaState`
+(``conv_x``, ``conv_bc``, ``ssm``), so a serving state's leaf names and
+shapes are the reference's.  ``lm_decode_step`` writes each layer's new
+cache rows or recurrent state into the stacked leaves in place and
+returns the caches it was given.
 
 A MoE layer's router aux loss is summed over the layers, as in the
-reference.  SSM and hybrid layers are not ported yet and raise.
+reference.  Encoder-decoder models are ROADMAP Queue 1, item 2.4, and
+raise from ``models/zoo.py``.
 
 Forward signatures:
   ``lm_forward(params, tokens, cfg, extra_embeds=None) → (logits, aux)``
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     cast_floating,
     embed_init,
@@ -52,10 +63,6 @@ from repro_torch.models.layers import (
 )
 
 Params = Dict[str, Any]
-
-_LATER_ARCHS = ("is not ported yet: SSM and hybrid architectures are "
-                "ROADMAP Queue 1, item 2.3 (encoder-decoder, item 2.4, "
-                "follows)")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -75,42 +82,55 @@ def _is_moe_layer(cfg: ArchConfig, idx_in_pattern: int) -> bool:
         if cfg.moe.every_k_layers > 1 else True
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    for kind in _pattern(cfg):
-        if kind != "attn":
-            raise NotImplementedError(f"the {kind} layer of {cfg.name} "
-                                      f"{_LATER_ARCHS}")
-
-
 def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str,
                moe_layer: bool, dtype) -> Params:
-    if kind != "attn":
-        raise NotImplementedError(f"the {kind} layer {_LATER_ARCHS}")
-    p: Params = {
-        "ln1": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "attn": attn.init_attention(gen, cfg, dtype),
-        "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-    }
-    if moe_layer:
-        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    dev = gen.device
+    p: Params = {"ln1": init_rmsnorm(cfg.d_model, dtype, dev)}
+    if kind == "attn":
+        p["attn"] = attn.init_attention(gen, cfg, dtype)
+    elif kind == "mamba":
+        p["mixer"] = ssm_mod.init_mamba_layer(gen, cfg, dtype)
+    elif kind == "rwkv6":
+        p["mixer"] = ssm_mod.init_rwkv6_layer(gen, cfg, dtype)
     else:
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+        raise ValueError(kind)
+    p["ln2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    if kind != "rwkv6":                      # rwkv layer embeds its own ffn
+        if moe_layer:
+            p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
-def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str,
-                moe_layer: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual block → (h, aux_loss)."""
-    if kind != "attn":
-        raise NotImplementedError(f"the {kind} layer {_LATER_ARCHS}")
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    h = h + attn.attention(p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg)
+def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig, moe_layer: bool
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLP or MoE half of an attention or Mamba block → (h, aux)."""
     x = rmsnorm(p["ln2"], h, cfg.norm_eps)
     if moe_layer:
         y, aux = moe_mod.moe_mlp(p["moe"], x, cfg)
     else:
         y = mlp(p["mlp"], x, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + y, aux
+
+
+def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str,
+                moe_layer: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual block → (h, aux_loss)."""
+    x = rmsnorm(p["ln1"], h, cfg.norm_eps)
+    if kind == "attn":
+        h = h + attn.attention(p["attn"], x, cfg)
+    elif kind == "mamba":
+        h = h + ssm_mod.mamba_block(p["mixer"], x, cfg)
+    elif kind == "rwkv6":
+        h = h + ssm_mod.rwkv6_time_mix(p["mixer"], x, cfg)
+        h = h + ssm_mod.rwkv6_channel_mix(
+            p["mixer"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        raise ValueError(kind)
+    return _ffn(p, h, cfg, moe_layer)
 
 
 # --------------------------------------------------------------------------- #
@@ -147,7 +167,6 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Parameters on ``gen.device`` in ``cfg.param_dtype``."""
-    _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     pattern = _pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
@@ -172,7 +191,6 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 def lm_backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_ported(cfg)
     pattern = _pattern(cfg)
     n_groups = params["groups"][0]["ln1"]["scale"].shape[0]
     layers = [_unstack(params["groups"][i], n_groups)
@@ -236,13 +254,19 @@ class LayerCache(NamedTuple):
 def init_caches(batch: int, cfg: ArchConfig, max_len: int,
                 device="cuda") -> Any:
     """Stacked (n_groups, ...) cache tree in ``cfg.compute_dtype``."""
-    _check_ported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     pattern = _pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
     caches = []
-    for _kind in pattern:
-        one = attn.init_decode_cache(batch, cfg, max_len, cdt, "meta")
+    for kind in pattern:
+        if kind == "attn":
+            one = attn.init_decode_cache(batch, cfg, max_len, cdt, "meta")
+        elif kind == "mamba":
+            one = ssm_mod.init_mamba_state(batch, cfg, cdt, "meta")
+        elif kind == "rwkv6":
+            one = ssm_mod.init_rwkv_state(batch, cfg, cdt, "meta")
+        else:
+            raise ValueError(kind)
         caches.append(type(one)(*(
             torch.zeros((n_groups,) + tuple(x.shape), dtype=x.dtype,
                         device=device) for x in one)))
@@ -270,7 +294,6 @@ def lm_decode_step(
     pos,                                       # int (or 0-d tensor)
     cfg: ArchConfig,
 ) -> Tuple[torch.Tensor, Any]:
-    _check_ported(cfg)
     pos = int(pos)
     cdt = dtype_of(cfg.compute_dtype)
     params = cast_floating(params, cdt)
@@ -280,17 +303,21 @@ def lm_decode_step(
               for i in range(len(pattern))]
     h = F.embedding(token.long(), params["embed"]).to(cdt)
     for g in range(n_groups):
-        for i, _kind in enumerate(pattern):
+        for i, kind in enumerate(pattern):
             p = layers[i][g]
             c = caches[i]
-            y, _ = attn.attention_decode(
-                p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps),
-                type(c)(*(x[g] for x in c)), pos, cfg)
-            h = h + y
-            x = rmsnorm(p["ln2"], h, cfg.norm_eps)
-            if _is_moe_layer(cfg, i):
-                y, _ = moe_mod.moe_mlp(p["moe"], x, cfg)
+            c = type(c)(*(x[g] for x in c))   # views: written in place
+            x = rmsnorm(p["ln1"], h, cfg.norm_eps)
+            if kind == "attn":
+                y, _ = attn.attention_decode(p["attn"], x, c, pos, cfg)
+            elif kind == "mamba":
+                y, _ = ssm_mod.mamba_decode_step(p["mixer"], x, c, cfg)
             else:
-                y = mlp(p["mlp"], x, cfg.act)
-            h = h + y
+                y, c = ssm_mod.rwkv6_decode_step(p["mixer"], x, c, cfg)
+                h = h + y
+                y, _ = ssm_mod.rwkv6_channel_mix_decode(
+                    p["mixer"], rmsnorm(p["ln2"], h, cfg.norm_eps), c)
+                h = h + y
+                continue
+            h, _ = _ffn(p, h + y, cfg, _is_moe_layer(cfg, i))
     return lm_logits(params, h, cfg), caches

@@ -1,17 +1,18 @@
 """Model zoo: uniform entry points over the ported architectures.
 
-The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs with
-GQA or MLA attention and dense or Mixture-of-Experts MLPs (``family``
-``dense``, ``vlm``, ``moe``):
+The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs:
+GQA or MLA attention with dense or Mixture-of-Experts MLPs, RWKV6 and
+Mamba layers, and hybrid layer patterns (``family`` ``dense``, ``vlm``,
+``moe``, ``ssm``, ``hybrid``):
 
   init(gen)                      → params on ``gen.device``
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
   init_caches(batch, max_len, device="cuda") → caches
   decode_step(params, token, caches, pos) → (logits, caches)
 
-``decode_step`` updates the caches in place and returns them.
-Encoder-decoder models are a later slice and raise; SSM and hybrid
-models raise from ``init`` (``models/transformer.py``).
+``decode_step`` updates the caches (KV or latent rows, recurrent states)
+in place and returns them.  Encoder-decoder models are not ported yet
+(ROADMAP Queue 1, item 2.4) and raise.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """Serving engine: batched prefill + incremental decode with KV caches (or
-MLA latent caches).
+MLA latent caches, or the recurrent states of SSM layers).
 
 The PyTorch counterpart of ``repro.serve.engine``.  The engine's state
 (caches + position + last token) is a tree of tensors, so OpenCHK can
 checkpoint a *serving* process too — a failed server resumes decoding
 without re-running prefill (examples/torch_serve_resilient.py).  Its leaf
 names, dtypes and shapes are the reference's (``caches/0/k`` or, for
-MLA, ``caches/0/c_kv`` and ``caches/0/k_rope``, ``pos``
+MLA, ``caches/0/c_kv`` and ``caches/0/k_rope``, for RWKV6
+``caches/0/tm_shift``, ``caches/0/cm_shift`` and ``caches/0/wkv``; ``pos``
 int32 scalar, ``last_token`` (B, 1) int32), so a serving checkpoint
 written by either package restores in the other.
 

@@ -861,3 +861,184 @@ def test_blockhash2_on_the_narrow_mla_cache_leaf_on_card():
     want = torch.zeros_like(words)
     want[sel] = words[sel]
     assert torch.equal(ops.as_u32_blocks(cold, bb)[0], want)
+
+
+def _seeded_(params, seed: int):
+    """Every floating leaf of ``params`` drawn afresh in place, non-zero, at
+    the scale of its init: a random leaf keeps its spread, a constant one
+    (zeros, ones) gets 0.2 of noise around its value, and RWKV's ``w0``
+    (-6 at init) is drawn around -1.  The init's zeros (ddlerp's and the
+    decay's LoRA B, the bonus u, every mu) would leave those paths
+    untested."""
+    from repro_torch.core.protect import flatten_named
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, v in flatten_named(params).items():
+            noise = torch.randn(v.shape, generator=g)
+            sd = float(v.std()) if v.numel() > 1 else 0.0
+            if k.endswith("w0"):
+                v.copy_(-1.0 + 0.5 * noise)
+            elif sd > 0:
+                v.copy_(noise * sd)
+            else:
+                v.add_(0.2 * noise)
+    return params
+
+
+def _rwkv6_two_layers():
+    """rwkv6-3b at its published widths (d_model 2560, 40 WKV heads of
+    64, d_ff 8960, vocab 65536), two layers, f32 compute, every leaf
+    seeded (:func:`_seeded_`), on the CPU and on the card (the same
+    values)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=2,
+                              compute_dtype="float32")
+    m = build_model(cfg)
+    params = _seeded_(m.init(torch.Generator().manual_seed(0)), 1)
+    on_card = unflatten_named({k: v.cuda() for k, v in
+                               flatten_named(params).items()}, params)
+    return cfg, m, params, on_card
+
+
+@pytest.mark.gpu
+def test_rwkv6_forward_backward_at_full_width_on_card_matches_the_cpu():
+    """Two layers of rwkv6-3b at full width, f32 compute, B 1 × S 512
+    (eight WKV chunks of 64), forward and backward: the card's loss within
+    1e-5 relative of the CPU's; each parameter's gradient as close to the
+    CPU's as the CPU's own is to a CPU run on weights perturbed by one
+    part in 1e7 (one f32 rounding), within a factor of 4 (+ 1e-5), in
+    relative norm ‖a − b‖ / ‖b‖.  These gradients are ill-conditioned in
+    f32: that perturbation moves layer 0's by up to 6.1e-4 (``u``), one
+    CPU thread in place of eight by 2.4e-4, the card by 1.07e-3 (an
+    H100 at 700 W); no flash launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.models.layers import softmax_cross_entropy
+    cfg, m, params, on_card = _rwkv6_two_layers()
+    g = torch.Generator().manual_seed(7)
+    perturbed = unflatten_named(
+        {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g))
+         for k, v in flatten_named(params).items()}, params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 513), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses, grads = [], []
+        for p, dev in ((params, "cpu"), (perturbed, "cpu"),
+                       (on_card, "cuda")):
+            leaves = flatten_named(p)
+            for v in leaves.values():
+                v.requires_grad_(True)
+            t = toks.to(dev)
+            logits, _ = m.forward(p, {"tokens": t[:, :-1]})
+            loss = softmax_cross_entropy(logits, t[:, 1:]).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({k: v.grad.cpu() for k, v in leaves.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(losses[2] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert "groups/0/mixer/lora_B" in grads[0]
+    bad = {}
+    for k, g0 in grads[0].items():
+        assert float(g0.abs().max()) > 0, k
+        noise = float((grads[1][k] - g0).norm() / g0.norm())
+        card = float((grads[2][k] - g0).norm() / g0.norm())
+        if card > 4 * noise + 1e-5:
+            bad[k] = (card, noise)
+    assert not bad, bad
+    assert ops.launch_counts()["flashattn"] == 0
+
+
+@pytest.mark.gpu
+def test_rwkv6_decode_at_full_width_on_card_matches_the_cpu():
+    """lm_decode_step of two rwkv6-3b layers at full width on the card
+    against the CPU, f32 compute, B 2, 16 steps: logits within 1e-4 at
+    every step; the WKV state and both shift rows after them, written in
+    place, within 1e-5 of the CPU's in relative norm (‖card − cpu‖ /
+    ‖cpu‖; the largest elementwise gap measured on an H100 at 700 W is
+    6.5e-5); no flash launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named
+    cfg, m, params, on_card = _rwkv6_two_layers()
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    c_cpu = m.init_caches(2, 16, device="cpu")
+    c_gpu = m.init_caches(2, 16, device="cuda")
+    wkv = c_gpu[0].wkv
+    ops.reset_launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for i in range(16):
+                a, c_cpu = m.decode_step(params, toks[:, i:i + 1], c_cpu, i)
+                b, c_gpu = m.decode_step(on_card, toks[:, i:i + 1].cuda(),
+                                         c_gpu, i)
+                assert float((a - b.cpu()).abs().max()) <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = flatten_named(c_gpu)
+    assert sorted(got) == ["0/cm_shift", "0/tm_shift", "0/wkv"]
+    assert c_gpu[0].wkv is wkv and bool(wkv.any())
+    rel = {}
+    for k, x in flatten_named(c_cpu).items():
+        assert got[k].is_cuda
+        rel[k] = (float((got[k].cpu() - x).norm() / x.norm()),
+                  float((got[k].cpu() - x).abs().max()),
+                  float(x.abs().max()))
+    assert all(r[0] <= 1e-5 for r in rel.values()), rel
+    assert ops.launch_counts()["flashattn"] == 0
+
+
+@pytest.mark.gpu
+def test_mamba_mixer_at_jamba_width_on_card_matches_the_cpu():
+    """One Mamba mixer at jamba-1.5-large's widths (d_model 8192, d_inner
+    16384, 256 heads of 64, d_state 16, conv 4, chunk 64), every leaf
+    seeded, f32: ``mamba_block`` at B 1 × S 256 (four SSD chunks) and 8
+    ``mamba_decode_step``s, card against CPU, each output within 1e-4 of
+    the CPU's largest output magnitude, and the three state leaves within
+    rtol = atol = 1e-5 after the decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm
+    cfg = get_arch("jamba-1.5-large-398b")
+    s = cfg.ssm
+    assert (cfg.d_model, s.expand * cfg.d_model, s.head_dim, s.d_state,
+            s.conv_width, s.chunk) == (8192, 16384, 64, 16, 4, 64)
+    p = _seeded_(ssm.init_mamba_layer(torch.Generator().manual_seed(0), cfg,
+                                      torch.float32), 2)
+    pg = {k: v.cuda() for k, v in p.items()}
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 256, cfg.d_model, generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = ssm.mamba_block(p, x, cfg)
+            got = ssm.mamba_block(pg, x.cuda(), cfg).cpu()
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+            st = ssm.init_mamba_state(1, cfg, torch.float32, "cpu")
+            sg = ssm.init_mamba_state(1, cfg, torch.float32, "cuda")
+            for i in range(8):
+                a, st = ssm.mamba_decode_step(p, x[:, i:i + 1], st, cfg)
+                b, sg = ssm.mamba_decode_step(pg, x[:, i:i + 1].cuda(), sg,
+                                              cfg)
+                assert float((b.cpu() - a).abs().max()) <= \
+                    1e-4 * float(a.abs().max())
+                assert float((a[:, 0] - want[:, i]).abs().max()) <= \
+                    1e-4 * float(want.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(st, sg):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)

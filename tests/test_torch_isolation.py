@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` imports neither jax nor any module
 of the JAX package ``repro``, and its main paths (directives, training,
 a reduced MoE model's forward and donated step, serving and deploy, a
-reduced MLA model's decode step, served and its state stored, a chaos
-scenario cell and an elastic restore) run with jax absent — as
+reduced MLA model's decode step, served and its state stored, a reduced
+RWKV6 model's decode over its recurrent state, served and its state
+stored, a chaos scenario cell and an elastic restore) run with jax absent — as
 ``chip_smoke.py`` drives them, which also refuses to run without a
 card."""
 import ast
@@ -153,6 +154,35 @@ cback = ctx10.load(ServeState(cm.init_caches(2, 16, device="cpu"),
 ctx10.shutdown()
 assert ctx10.restarted and torch.equal(cback.caches[0].k_rope,
                                        ceng.state.caches[0].k_rope)
+# RWKV6: a reduced rwkv6-3b decodes over its recurrent state (written in
+# place), is served, and its ServeState (every block dirty after 4 more
+# tokens: the DIFF is promoted to FULL) is stored and restored
+rcfg = get_arch("rwkv6-3b").reduced()
+rm = build_model(rcfg)
+rparams = rm.init(torch.Generator().manual_seed(5))
+rc = rm.init_caches(2, 16, device="cpu")
+rwkv = rc[0].wkv
+rlog, rc2 = rm.decode_step(rparams, torch.ones((2, 1), dtype=torch.int32),
+                           rc, 0)
+assert rc2 is rc and rc[0].wkv is rwkv and bool(rwkv.any())
+assert rlog.shape == (2, 1, rcfg.vocab_size)
+reng = ServingEngine(rm, rparams, batch=2, max_len=16)
+reng.prefill(torch.randint(0, rcfg.vocab_size, (2, 4), dtype=torch.int32))
+rcfg_ck = CheckpointConfig(dir=d + "/rwkv", backend="fti", block_bytes=256,
+                           dedicated_thread=False, objstore=False)
+ctx11 = CheckpointContext(rcfg_ck)
+ctx11.store(reng.get_state(), id=4, level=1)
+reng.generate(4)
+assert ctx11.store(reng.get_state(), id=8, level=1,
+                   kind=CHK_DIFF).promoted_full
+ctx11.shutdown()
+ctx12 = CheckpointContext(rcfg_ck)
+rback = ctx12.load(ServeState(rm.init_caches(2, 16, device="cpu"),
+                              torch.tensor(0, dtype=torch.int32),
+                              torch.zeros((2, 1), dtype=torch.int32)))
+ctx12.shutdown()
+assert ctx12.restarted and int(rback.pos) == 8 and torch.equal(
+    rback.caches[0].wkv, reng.state.caches[0].wkv)
 # chaos: one scenario cell on the CPU, the CLI tools, an elastic restore
 import repro_torch.tools.chkls, repro_torch.tools.chktrace
 from repro_torch.chaos.scenarios import run_scenario
@@ -190,6 +220,7 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     scanned = {str(p.relative_to(SRC / "repro_torch")) for p in paths}
     assert {"models/attention.py", "models/transformer.py", "models/moe.py",
+            "models/ssm.py",
             "kernels/flashattn.py", "train/step.py", "train/loop.py",
             "launch/train.py", "data/synthetic.py", "configs/base.py",
             "core/incremental.py", "backends/scr.py", "objstore/tier.py",
@@ -220,7 +251,8 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     checkpointed training (run A vs store, fault, restore, resume) on a
     reduced config, serving and deploy, phase 8: the chaos matrix, the
     elastic rescale, the sharded directive restore with its fall back, and
-    the supervised kill, and phase 10: MLA served and resumed."""
+    the supervised kill, phase 10: MLA served and resumed, and phase 11:
+    RWKV6 served and resumed, every cadence store promoted to FULL."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
          "--width-div", "16", "--block-bytes", "256"],
@@ -228,10 +260,12 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "dirty blocks: store 2" in out.stdout
     assert "resumed TrainState equals run A's bit for bit" in out.stdout
-    # phase 7 (tinyllama) and phase 10 (MLA: minicpm3's latent cache)
+    # phase 7 (tinyllama), phase 10 (MLA: minicpm3's latent cache) and
+    # phase 11 (RWKV6: rwkv6-3b's recurrent state)
     assert out.stdout.count("final ServeState equal run A's bit for bit") \
-        == 2
+        == 3
     assert "[mla] restore:" in out.stdout
+    assert "[ssm] every cadence store promoted to FULL (3)" in out.stdout
     assert "generates the 4 tokens of an engine built on" in out.stdout
     assert "[chaos] matrix on cpu: 24/24 passed, data loss 0 B" in out.stdout
     assert "new world 3: every rank's rows on cpu equal" in out.stdout

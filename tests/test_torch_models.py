@@ -307,16 +307,18 @@ def test_lm_forward_bf16_matches_reference(monkeypatch):
 
 def test_unported_architectures_raise():
     gen = torch.Generator().manual_seed(0)
-    # the MoE layer and MLA are ported: mixtral and minicpm3 build, and
-    # jamba raises for its mamba layer
+    # the MoE layer, MLA and the SSM layers are ported: mixtral, minicpm3,
+    # rwkv6 and jamba (its attention, mamba and MoE layers) build; only the
+    # encoder-decoder raises
     assert "groups/0/moe/router" in flatten_named(
         build_model(get_arch("mixtral-8x7b").reduced()).init(gen))
     assert "groups/0/attn/w_uk" in flatten_named(
         build_model(get_arch("minicpm3-4b").reduced()).init(gen))
-    for name, match in (("rwkv6-3b", "the rwkv6 layer"),
-                        ("jamba-1.5-large-398b", "the mamba layer")):
-        with pytest.raises(NotImplementedError, match=match):
-            build_model(get_arch(name).reduced()).init(gen)
+    assert "groups/0/mixer/lora_A" in flatten_named(
+        build_model(get_arch("rwkv6-3b").reduced()).init(gen))
+    assert {"groups/0/attn/wq", "groups/1/mixer/A_log",
+            "groups/1/moe/router"} <= set(flatten_named(build_model(
+                get_arch("jamba-1.5-large-398b").reduced()).init(gen)))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_arch("whisper-small").reduced())
     # decode is ported for the dense and MLA models: MLA's latent cache

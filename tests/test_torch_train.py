@@ -215,7 +215,10 @@ def test_next_batch_is_a_pure_function_of_the_cursor():
                  id="internvl2-1b-flash-1"),
     # MLA: the naive form runs blockwise whatever REPRO_ATTN_IMPL says
     pytest.param("minicpm3-4b", "flash", 1, 1e-6,
-                 id="minicpm3-4b-flash-1")])
+                 id="minicpm3-4b-flash-1"),
+    # RWKV6: the chunked WKV recurrence, no attention
+    pytest.param("rwkv6-3b", "blockwise", 1, 1e-6,
+                 id="rwkv6-3b-blockwise-1")])
 def test_train_step_matches_jax(monkeypatch, arch, attn_impl, microbatches,
                                 eps):
     """Same weights, batch and f32 compute: new params, mu, nu within 1e-6
