@@ -17,8 +17,9 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    a 0-byte leaf; one leaf per launch, and every case in one table), bit
    for bit, and a round trip from ``ops.pack_dirty_many`` through the host
    to ``ops.unpack_dirty_many``; the serve paths' cache leaves (phase 7's
-   (22, 4, 2048, 4, 64) KV leaves, phase 10's (62, 4, 2048, 256) latent
-   and (62, 4, 2048, 32) rotary-key leaves, bf16) hashed, and the blocks
+   (22, 4, 2048, 4, 64) KV leaves, minicpm3-4b's full-depth (62, 4,
+   2048, 256) latent and (62, 4, 2048, 32) rotary-key leaves, bf16)
+   hashed, and the blocks
    16 decode positions dirty packed and scattered into a cold cache;
    phase 11's recurrent state (the (32, 4, 40, 64, 64) f32 WKV state and
    the (32, 4, 1, 2560) bf16 shift rows) hashed;
@@ -27,8 +28,9 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    not, and at S 256, and its grouped entry against
    ``flash_attention_gqa_ref`` at the training shape (32 heads over 4 KV
    heads), at the MoE training shape (B 4, S 2048, 24 heads over 8 KV
-   heads: a group of 3), at dh 128, H/KV 1 and 8, Sk ≠ S, and at the
-   supervised kill workers' shape (B 2, S 32, 32 heads over 4): bf16
+   heads: a group of 3), at dh 128, H/KV 1 and 8, Sk ≠ S, at the
+   supervised kill workers' shape (B 2, S 32, 32 heads over 4) and at
+   the encoder-decoder's (B 16, S 512, 12 heads over 12 of 64): bf16
    within one bf16 ulp of
    the output and two launches bit-equal, f32 within 2e-5, and the
    autograd gradient (kernel forward, plain backward) within 1e-4 of
@@ -52,7 +54,7 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    3.35 TB/s and the operations (the busiest integer pipe or the
    instruction dispatch rate, counted in the SASS of the hash as built;
    the attention's FLOPs over the dense bf16 peak), the attention at the
-   training shape and at the MoE training shape.
+   training shape, at the MoE training shape and at the encoder-decoder's.
 5. Checkpointed training at full width: tinyllama-1.1b's TrainState
    (13.2 GB: params, mu, nu in f32) with ``REPRO_ATTN_IMPL=flash``, batch
    4 × 2048 tokens, remat, FTI level 1 with a CP-dedicated thread, in
@@ -130,10 +132,11 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
 
 10. MLA served at full width: minicpm3-4b (hf:openbmb/MiniCPM3-4B: 62
    layers, d_model 2560, 40 heads; q_lora 768, kv_lora 256, qk nope/rope
-   64/32, v_head 64; d_ff 6400, vocab 73448, untied lm_head; no cut), f32
+   64/32, v_head 64; d_ff 6400, vocab 73448, untied lm_head; its depth
+   cut to ``MLA_LAYERS`` (16) for the time phase 12 takes), f32
    parameters, bf16 compute, deterministic, decoding in the absorbed form
-   over its latent cache (c_kv (62, 4, 2048, 256) and k_rope (62, 4,
-   2048, 32), 292.6 MB), with phase 7's batch, prompts, cache length,
+   over its latent cache (c_kv (16, 4, 2048, 256) and k_rope (16, 4,
+   2048, 32), 75.5 MB), with phase 7's batch, prompts, cache length,
    DIFF cadence and fault: run A uninterrupted, run B with a FULL
    ServeState after prefill, a DIFF every 16 tokens (each with the
    dirty-block count the written positions give), the fault after 48, a
@@ -155,13 +158,23 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    phase must be ``blockhash2`` once per store and card leaf and no
    ``diffpack``, ``diffunpack`` or ``flashattn``.
 
+12. The encoder-decoder trained at full width: whisper-small
+   (arXiv:2212.04356: 12 encoder + 12 decoder layers, d_model 768, 12
+   heads of 64, d_ff 3072, vocab 51865, tied, gelu, no rope; the audio
+   frontend a stub that takes frame embeddings; no cut), its TrainState
+   of 3.54 GB (294,683,904 parameters and both moments in f32; 78 leaves
+   on the card), bf16 compute, batch 16 × 512 tokens and 512 frames
+   (whisper's text context of 448 rounded up to the flash tile of 128),
+   run as phase 5 with the same checks; flash runs 36 times per step and
+   pass (12 encoder self, 12 decoder self causal, 12 cross).
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6, 7, 8, 9, 10 and 11 on the CPU with the plain
-versions (phases 5, 7, 9, 10, 11 and 8's supervised kill on a reduced
-config) and prints no result.
+rehearses phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 on the CPU with the
+plain versions (phases 5, 7, 9, 10, 11, 12 and 8's supervised kill on a
+reduced config) and prints no result.
 """
 from __future__ import annotations
 
@@ -222,6 +235,10 @@ DEPLOY_LAYERS = 8
 #: phase 9's depth, cut from granite's 32 for the time phase 10 takes (its
 #: 39.6 GB FULL restored in 108–176 s)
 MOE_LAYERS = 16
+#: phase 10's depth, cut from minicpm3-4b's 62 for the time phase 12 takes:
+#: with all 62 the script took 985.1 s of its 1,200 on an H100 host, and
+#: host-bound phases run up to 1.25x slower on some hosts
+MLA_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -740,13 +757,15 @@ FLASH_SHAPES = ((4, 2048, 32, 64), (4, 256, 32, 64))
 #: (B, S, Sk, H, KV, dh) of the grouped entry: the training path's shape,
 #: the MoE training path's (phase 9: 24 heads over 8, a group of 3, the
 #: first that is not a power of two), dh 128 with H/KV 8 and 1, Sk != S,
-#: and the supervised kill's workers' shape (phase 8 (d)), whose 32 rows
-#: are under one 128-row tile
+#: the supervised kill's workers' shape (phase 8 (d)), whose 32 rows are
+#: under one 128-row tile, and the encoder-decoder's (phase 12: encoder
+#: self, decoder self and cross attention all take it)
 GQA_SHAPES = ((4, 2048, 2048, 32, 4, 64), (4, 2048, 2048, 24, 8, 64),
               (2, 1024, 1024, 16, 2, 128), (2, 512, 512, 8, 8, 128),
               (2, 512, 1536, 8, 1, 64), (2, 1024, 256, 8, 8, 32),
-              (2, 32, 32, 32, 4, 64))
+              (2, 32, 32, 32, 4, 64), (16, 512, 512, 12, 12, 64))
 MOE_GQA_SHAPE = GQA_SHAPES[1]
+ENCDEC_GQA_SHAPE = GQA_SHAPES[-1]
 
 
 def check_flash(torch, device, ops, ref, fa) -> float:
@@ -1107,6 +1126,14 @@ def time_flash(torch, device, ref, fa, shape) -> dict:
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+#: phase 12: whisper-small trained at full width, B 16 × S 512 tokens and
+#: as many frames (the reference's batch ties the frame count to the
+#: sequence).  whisper's text context of 448 is rounded up to the flash
+#: tile of 128 (S and Sk must each divide by it or be at most 128): 8,192
+#: decoder tokens a step, as phase 5's 4 × 2048
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_DIR = ROOT / "build" / "chip_smoke_encdec"
+ENCDEC_BATCH, ENCDEC_SEQ = 16, 512
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_DIR = ROOT / "build" / "chip_smoke_moe"
 #: record_function ranges of models/moe.py whose device time phase 9's
@@ -1227,15 +1254,17 @@ def host_mem_total() -> int:
 
 
 def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
-                  donate: bool = False, ranges=(), layers=None) -> dict:
-    """Phases 5 and 9.  Run A: TRAIN_STEPS steps, no store; each leaf's
+                  donate: bool = False, ranges=(), layers=None,
+                  batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """Phases 5, 9 and 12.  Run A: TRAIN_STEPS steps, no store; each leaf's
     SHA-256.  Run B, from the same seed: a FULL store at step 2, an
     injected fault at step 3; the faulted state is freed, and a fresh
     context restores into a template that holds no device memory and runs
     step 3.  Its leaves' SHA-256 must equal run A's.  ``donate``: the
     steps update the state in place (the launcher's step); ``ranges``:
     ``record_function`` ranges the profiled step reports; ``layers``: a
-    cut of the config's depth on the card."""
+    cut of the config's depth on the card; ``batch`` × ``seq``: the
+    tokens of a step on the card (an encoder-decoder's frames as many)."""
     import gc
 
     from repro_torch.configs import get_arch
@@ -1252,7 +1281,7 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
                                         use_deterministic_algorithms)
 
     on_card = device.type == "cuda"
-    cfg, batch, seq = get_arch(arch), TRAIN_BATCH, TRAIN_SEQ
+    cfg = get_arch(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if not on_card:                                  # the CPU rehearsal
@@ -1307,8 +1336,12 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
     nbytes = sum(x.numel() * x.element_size() for x in named.values())
     n_card = sum(x.device == device for x in named.values())
     largest = max(named, key=lambda k: named[k].numel())
+    n_params = sum(v.numel() for k, v in named.items()
+                   if k.startswith("params/"))
     m = cfg.moe
-    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    depth = (f"{cfg.n_layers} encoder + {cfg.n_layers} decoder layers"
+             if cfg.encdec else f"{cfg.n_layers} layers")
+    log(f"[{tag}] {cfg.name}: {depth}, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
         f"{cfg.head_dim}, "
         + (f"{m.n_experts} experts of d_ff {cfg.d_ff}, top-{m.top_k}, "
@@ -1316,10 +1349,13 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
            f"{m.dispatch} dispatch, " if m else f"d_ff {cfg.d_ff}, ")
         + f"vocab {cfg.vocab_size}"
         + (", tied embed" if cfg.tie_embeddings else "")
-        + f"; TrainState {len(named)} leaves ({n_card} on {device}), "
+        + (f", {cfg.act}, no rope" if cfg.encdec else "")
+        + f"; {n_params:,} parameters; TrainState {len(named)} leaves "
+        f"({n_card} on {device}), "
         f"{nbytes / 1e9:.2f} GB, largest {largest} "
         f"{tuple(named[largest].shape)}; made in {made_s:.1f} s; batch "
-        f"{batch} x {seq}, remat, REPRO_ATTN_IMPL=flash, "
+        f"{batch} x {seq}" + (" tokens and frames" if cfg.encdec else "")
+        + ", remat, REPRO_ATTN_IMPL=flash, "
         f"{'donated' if donate else 'functional'} steps; host MemTotal "
         f"{host_mem_total() / 1e9:.1f} GB")
     del named
@@ -1417,7 +1453,9 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
         log(f"[{tag}] run {run} step {step}: {sec:.3f} s, "
             f"{batch * seq / sec:.0f} tokens/s, flash launches {n}, "
             f"loss {loss:.6f}" + (f" (router aux {aux:.6f})" if m else ""))
-    want_per_step = 2 * cfg.n_layers          # forward + remat recompute
+    # forward + remat recompute, per layer: one attention, or three for an
+    # encoder-decoder's layer pair (encoder self, decoder self, cross)
+    want_per_step = 2 * cfg.n_layers * (3 if cfg.encdec else 1)
     if not all(math.isfinite(x[4]) for x in steps):
         fail("a training loss is not finite")
     if [x[:2] for x in steps] != [("A", 1), ("A", 2), ("A", 3), ("B", 1),
@@ -2080,14 +2118,15 @@ MLA_DIR = ROOT / "build" / "chip_smoke_mla"
 
 
 def served_phase(torch, args, device, ops, arch: str, tag: str, root: Path,
-                 seed: int, phase: int, widths, state: str):
+                 seed: int, phase: int, widths, state: str, layers=None):
     """Phases 10 and 11: ``arch`` at its published widths (reduced on the
     CPU) serves and resumes as phase 7's first half (:func:`serve_resume`,
     phase 7's batch, prompt, cache length, tokens, store cadence and
     fault), f32 parameters made on the device from ``seed``, bf16
     compute, deterministic on the card; the launches over the phase must
     be :func:`serve_launches`'.  ``widths(cfg)``: the architecture's
-    widths, for the log; ``state``: what the ServeState's caches are.
+    widths, for the log; ``state``: what the ServeState's caches are;
+    ``layers``: a cut of the config's depth on the card.
     → (cfg, serve_resume's result, the launches over the phase)"""
     from repro_torch.configs import get_arch
     from repro_torch.models.zoo import build_model
@@ -2096,6 +2135,8 @@ def served_phase(torch, args, device, ops, arch: str, tag: str, root: Path,
 
     on_card = device.type == "cuda"
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     batch, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
     gen_n, every, fault = SERVE_GEN, SERVE_EVERY, SERVE_FAULT
     if not on_card:                                  # the CPU rehearsal
@@ -2154,7 +2195,7 @@ def mla_path(torch, args, device, ops) -> dict:
 
     cfg, _, launches = served_phase(torch, args, device, ops, MLA_ARCH,
                                     "mla", MLA_DIR, SEED + 12, 10, widths,
-                                    "latent cache")
+                                    "latent cache", layers=MLA_LAYERS)
     return {"launches": launches, "layers": cfg.n_layers}
 
 # --------------------------------------------------------------------------- #
@@ -2492,6 +2533,8 @@ def main() -> None:
                       MOE_DIR, donate=True)
         mla_path(torch, args, torch.device("cpu"), ops)
         ssm_path(torch, args, torch.device("cpu"), ops)
+        training_path(torch, args, torch.device("cpu"), ops, ENCDEC_ARCH,
+                      "encdec", ENCDEC_DIR)
         log("chip_smoke: CPU rehearsal of the main paths passed "
             "(no kernel ran; no result)")
         return
@@ -2533,6 +2576,8 @@ def main() -> None:
     times["flashattn"] = time_flash(torch, device, ref, fa, GQA_SHAPES[0])
     times["flashattn"]["at_moe_shape"] = time_flash(torch, device, ref, fa,
                                                     MOE_GQA_SHAPE)
+    times["flashattn"]["at_encdec_shape"] = time_flash(
+        torch, device, ref, fa, ENCDEC_GQA_SHAPE)
     log(f"[phase] timing: {time.time() - t:.1f} s")
     del state
     t = time.time()
@@ -2558,10 +2603,16 @@ def main() -> None:
         f"{time.time() - t:.1f} s")
     t = time.time()
     mla = mla_path(torch, args, device, ops)
-    log(f"[phase] MLA serve and resume: {time.time() - t:.1f} s")
+    log(f"[phase] MLA serve and resume ({MLA_LAYERS} of 62 layers): "
+        f"{time.time() - t:.1f} s")
     t = time.time()
     ssm = ssm_path(torch, args, device, ops)
     log(f"[phase] RWKV6 serve and resume: {time.time() - t:.1f} s")
+    t = time.time()
+    encdec = training_path(torch, args, device, ops, ENCDEC_ARCH, "encdec",
+                           ENCDEC_DIR, batch=ENCDEC_BATCH, seq=ENCDEC_SEQ)
+    log(f"[phase] checkpointed encoder-decoder training: "
+        f"{time.time() - t:.1f} s")
     log(f"[phase] all phases, the build included: "
         f"{time.time() - t_start:.1f} s")
 
@@ -2580,7 +2631,7 @@ def main() -> None:
              "chaos": chaos["launches"],
              "supervised": chaos["worker_launches"],
              "moe": moe["launches"], "mla": mla["launches"],
-             "ssm": ssm["launches"]}
+             "ssm": ssm["launches"], "encdec": encdec["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2608,9 +2659,11 @@ def main() -> None:
                                "chaos": None,
                                "supervised": chaos["supervised_layers"],
                                "moe": moe["layers"], "mla": mla["layers"],
-                               "ssm": ssm["layers"]}})
-        if "at_moe_shape" in r:          # flashattn at phase 9's shape
-            kernels[-1]["at_moe_shape"] = r["at_moe_shape"]
+                               "ssm": ssm["layers"],
+                               "encdec": encdec["layers"]}})
+        for key in ("at_moe_shape", "at_encdec_shape"):
+            if key in r:                 # flashattn at phases 9's and 12's
+                kernels[-1][key] = r[key]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,15 +40,18 @@ def next_batch(
 ) -> Tuple[Dict[str, torch.Tensor], DataState]:
     """Cursor → (batch on ``device``, cursor+1).  Pure: the same cursor
     gives the same batch."""
-    if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder batches are not ported yet "
-            f"(ROADMAP Queue 1, item 2.4: whisper-small)")
     seed = int(state.seed) & 0xFFFFFFFF
     gen = torch.Generator().manual_seed(
         (seed << 32) | (int(state.position) & 0xFFFFFFFF))
     out: Dict[str, torch.Tensor] = {}
-    if cfg.frontend == "vision_stub":
+    if cfg.encdec:
+        out["frames"] = (torch.randn(
+            (global_batch, seq_len, cfg.d_model), generator=gen) * 0.02).to(
+            getattr(torch, cfg.compute_dtype))
+        toks = torch.randint(0, cfg.vocab_size, (global_batch, seq_len + 1),
+                             generator=gen, dtype=torch.int32)
+        out["tokens"], out["labels"] = toks[:, :-1], toks[:, 1:]
+    elif cfg.frontend == "vision_stub":
         p = cfg.n_frontend_tokens
         out["patch_embeds"] = (torch.randn(
             (global_batch, p, cfg.d_model), generator=gen) * 0.02).to(
@@ -67,3 +70,30 @@ def next_batch(
     device = torch.device("cpu") if device is None else device
     out = {k: v.contiguous().to(device) for k, v in out.items()}
     return out, DataState(state.seed, state.position + 1)
+
+
+class SyntheticDataset:
+    """Host-side iterator over :func:`next_batch` whose cursor can be
+    checkpointed (``get_state`` / ``set_state``); batches go to
+    ``device``."""
+
+    def __init__(self, cfg: ArchConfig, global_batch: int, seq_len: int,
+                 seed: int = 0, device=None):
+        self.cfg, self.gb, self.sl = cfg, global_batch, seq_len
+        self.device = device
+        self.state = init_data_state(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        batch, self.state = next_batch(self.state, self.cfg, self.gb,
+                                       self.sl, self.device)
+        return batch
+
+    # checkpointable cursor ------------------------------------------------ #
+    def get_state(self) -> DataState:
+        return self.state
+
+    def set_state(self, st: DataState) -> None:
+        self.state = st

@@ -28,9 +28,13 @@ rotary key ``k_rope``, ``W_uk`` is folded into the query and ``W_uv``
 applied after the latent average.  Decode writes the new rows in place and
 attends over the valid prefix, as :func:`gqa_decode` does.
 
+Cross-attention (the encoder-decoder's, ``models/encdec.py``) is
+:func:`gqa_attention` with ``kv_override``: K and V come from the encoder
+states (``Sk`` may differ from ``S``), no rope, never causal; and
+:func:`gqa_decode` with ``kv_override=(k, v)``, which attends over every
+slot of the static cross cache and writes nothing.
+
 The reference's sharding hints are dropped: one device needs none.
-Cross-attention raises: it comes with the encoder-decoder models (ROADMAP
-Queue 1, item 2.4).
 """
 from __future__ import annotations
 
@@ -73,6 +77,10 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
         p["bk"] = torch.zeros((kv * dh,), dtype=dtype, device=gen.device)
         p["bv"] = torch.zeros((kv * dh,), dtype=dtype, device=gen.device)
     return p
+
+
+def init_cross_attn(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    return init_gqa(gen, cfg, dtype)
 
 
 def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
@@ -121,8 +129,10 @@ def blockwise_attention(
 ) -> torch.Tensor:
     """Query-block-looped attention, O(q_block·Sk) scores per block.  With
     ``window`` set, each query block attends only to a K/V span of length
-    ``window + q_block``."""
+    ``window + q_block``.  K and V may be longer or shorter than q
+    (cross-attention; the reference's version takes only Sk = S)."""
     b, s, h, dh = q.shape
+    sk = k.shape[1]
     scale = float(1.0 / torch.tensor(float(dh)).sqrt())
     qb = min(q_block, s)
     n_blocks = s // qb
@@ -142,7 +152,7 @@ def blockwise_attention(
             k_pos = k_start + torch.arange(span, device=q.device)
         else:
             ki, vi = k, v
-            k_pos = torch.arange(s, device=q.device)
+            k_pos = torch.arange(sk, device=q.device)
         q_pos = q_start + torch.arange(qb, device=q.device)
         if causal:
             mask = k_pos[None, :] <= q_pos[:, None]
@@ -168,40 +178,39 @@ def gqa_attention(
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
     use_rope: Optional[bool] = None,             # default: cfg.use_rope
-    kv_override: Optional[torch.Tensor] = None,
+    kv_override: Optional[torch.Tensor] = None,  # cross-attn: encoder states
 ) -> torch.Tensor:
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (the encoder-decoder models "
-            "of ROADMAP Queue 1, item 2.4)")
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = kv_override if kv_override is not None else x
+    sk = src.shape[1]
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
+    k = k.reshape(b, sk, kv, dh)
+    v = v.reshape(b, sk, kv, dh)
 
     if use_rope is None:
         use_rope = cfg.use_rope
-    if use_rope:
+    if use_rope and kv_override is None:
         pos = positions if positions is not None else \
             torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
 
+    is_causal = causal and kv_override is None
     if _attn_impl() == "flash" and cfg.sliding_window is None:
         # the grouped KV heads are read in place: no repeat, no transposes
-        out = flash_attention_gqa(q, k, v, causal=causal)
+        out = flash_attention_gqa(q, k, v, causal=is_causal)
     else:
         out = blockwise_attention(q, repeat_kv(k, h // kv),
-                                  repeat_kv(v, h // kv), causal=causal,
+                                  repeat_kv(v, h // kv), causal=is_causal,
                                   window=cfg.sliding_window)
     return out.reshape(b, s, h * dh) @ p["wo"]
 
@@ -236,35 +245,44 @@ def gqa_decode(
     cache: KVCache,
     pos,                          # int (or 0-d tensor) — current position
     cfg: ArchConfig,
+    *,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token → (out (B, 1, d), the same cache with slot ``pos`` (or
-    ``pos % C`` when windowed) written in place)."""
+    ``pos % C`` when windowed) written in place).  With ``kv_override``
+    (cross-attention: the static (B, T, KV, dh) K and V of the encoder
+    states) it attends over all T slots and leaves ``cache`` as it is."""
     pos = int(pos)
     b = x.shape[0]
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = float(1.0 / torch.tensor(float(dh)).sqrt())
 
     q = x @ p["wq"]
-    knew = x @ p["wk"]
-    vnew = x @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-        knew = knew + p["bk"]
-        vnew = vnew + p["bv"]
     q = q.reshape(b, 1, h, dh)
-    knew = knew.reshape(b, 1, kvh, dh)
-    vnew = vnew.reshape(b, 1, kvh, dh)
     if cfg.use_rope:
         pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos_b, cfg.rope_theta)
-        knew = apply_rope(knew, pos_b, cfg.rope_theta)
 
-    c = cache.k.shape[1]
-    slot = pos % c if cache.is_windowed(cfg) else pos
-    cache.k[:, slot] = knew[:, 0]
-    cache.v[:, slot] = vnew[:, 0]
-    n = min(pos + 1, c)            # the slots the reference's mask keeps
-    ck, cv = cache.k[:, :n], cache.v[:, :n]
+    if kv_override is not None:                   # cross-attn: static cache
+        ck, cv = kv_override
+    else:
+        knew = x @ p["wk"]
+        vnew = x @ p["wv"]
+        if cfg.qkv_bias:
+            knew = knew + p["bk"]
+            vnew = vnew + p["bv"]
+        knew = knew.reshape(b, 1, kvh, dh)
+        vnew = vnew.reshape(b, 1, kvh, dh)
+        if cfg.use_rope:
+            knew = apply_rope(knew, pos_b, cfg.rope_theta)
+        c = cache.k.shape[1]
+        slot = pos % c if cache.is_windowed(cfg) else pos
+        cache.k[:, slot] = knew[:, 0]
+        cache.v[:, slot] = vnew[:, 0]
+        n = min(pos + 1, c)        # the slots the reference's mask keeps
+        ck, cv = cache.k[:, :n], cache.v[:, :n]
 
     # query head h reads KV head h // rep, as repeat_kv would lay them out
     qg = q[:, 0].reshape(b, kvh, h // kvh, dh)

@@ -56,6 +56,22 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(dt)
 
 
+def init_layernorm(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in f32, cast back to ``x``'s dtype; the
+    variance is the population one (``jnp.var``)."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 def groupnorm_heads(x: torch.Tensor, n_heads: int, eps: float = 1e-5
                     ) -> torch.Tensor:
     """GroupNorm with one group per head over the last dim (RWKV wkv

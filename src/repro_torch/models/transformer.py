@@ -34,8 +34,7 @@ cache rows or recurrent state into the stacked leaves in place and
 returns the caches it was given.
 
 A MoE layer's router aux loss is summed over the layers, as in the
-reference.  Encoder-decoder models are ROADMAP Queue 1, item 2.4, and
-raise from ``models/zoo.py``.
+reference.  The encoder-decoder is ``models/encdec.py``.
 
 Forward signatures:
   ``lm_forward(params, tokens, cfg, extra_embeds=None) → (logits, aux)``

@@ -1,9 +1,10 @@
-"""Model zoo: uniform entry points over the ported architectures.
+"""Model zoo: uniform entry points over every architecture.
 
-The PyTorch counterpart of ``repro.models.zoo`` for decoder-only LMs:
-GQA or MLA attention with dense or Mixture-of-Experts MLPs, RWKV6 and
-Mamba layers, and hybrid layer patterns (``family`` ``dense``, ``vlm``,
-``moe``, ``ssm``, ``hybrid``):
+The PyTorch counterpart of ``repro.models.zoo``: decoder-only LMs (GQA
+or MLA attention with dense or Mixture-of-Experts MLPs, RWKV6 and Mamba
+layers, and hybrid layer patterns: ``family`` ``dense``, ``vlm``,
+``moe``, ``ssm``, ``hybrid``) and the encoder-decoder (``encdec``, whose
+batch carries ``frames`` beside ``tokens``):
 
   init(gen)                      → params on ``gen.device``
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
@@ -11,18 +12,19 @@ Mamba layers, and hybrid layer patterns (``family`` ``dense``, ``vlm``,
   decode_step(params, token, caches, pos) → (logits, caches)
 
 ``decode_step`` updates the caches (KV or latent rows, recurrent states)
-in place and returns them.  Encoder-decoder models are not ported yet
-(ROADMAP Queue 1, item 2.4) and raise.
+in place and returns them.  An encoder-decoder's ``init_caches`` takes an
+``enc_len`` (default ``max_len``) for its static cross K/V.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as lm_mod
 
 
@@ -46,11 +48,22 @@ def _lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         extra_embeds=batch.get("patch_embeds"), remat=remat)
 
 
+def _encdec_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+                    remat: bool = False):
+    return encdec_mod.encdec_forward(
+        params, batch["frames"], batch["tokens"], cfg, remat=remat)
+
+
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP "
-            f"Queue 1, item 2.4: whisper-small)")
+        return Model(
+            cfg=cfg,
+            init=functools.partial(encdec_mod.init_encdec, cfg=cfg),
+            forward=functools.partial(_encdec_forward, cfg=cfg),
+            init_caches=functools.partial(_encdec_caches, cfg=cfg),
+            cache_struct=functools.partial(_encdec_cache_struct, cfg=cfg),
+            decode_step=functools.partial(_encdec_decode, cfg=cfg),
+        )
     return Model(
         cfg=cfg,
         init=functools.partial(lm_mod.init_lm, cfg=cfg),
@@ -71,3 +84,20 @@ def _lm_cache_struct(batch: int, max_len: int, cfg: ArchConfig):
 
 def _lm_decode(params, token, caches, pos, cfg: ArchConfig):
     return lm_mod.lm_decode_step(params, token, caches, pos, cfg)
+
+
+def _encdec_caches(batch: int, max_len: int, cfg: ArchConfig, device="cuda",
+                   enc_len: Optional[int] = None):
+    return encdec_mod.init_encdec_caches(
+        batch, cfg, max_len, enc_len if enc_len is not None else max_len,
+        device)
+
+
+def _encdec_cache_struct(batch: int, max_len: int, cfg: ArchConfig,
+                         enc_len: Optional[int] = None):
+    return encdec_mod.encdec_cache_struct(
+        batch, cfg, max_len, enc_len if enc_len is not None else max_len)
+
+
+def _encdec_decode(params, token, caches, pos, cfg: ArchConfig):
+    return encdec_mod.encdec_decode_step(params, token, caches, pos, cfg)

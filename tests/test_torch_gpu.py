@@ -1042,3 +1042,119 @@ def test_mamba_mixer_at_jamba_width_on_card_matches_the_cpu():
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for a, b in zip(st, sg):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+def _whisper_two_layers():
+    """whisper-small at its published widths (d_model 768, 12 heads of 64,
+    d_ff 3072, vocab 51865, tied, gelu), 2 encoder + 2 decoder layers, f32
+    compute, every leaf seeded (:func:`_seeded_`: the init's norm scales
+    are all 1), on the CPU and on the card (the same values)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(get_arch("whisper-small"), n_layers=2,
+                              compute_dtype="float32")
+    m = build_model(cfg)
+    params = _seeded_(m.init(torch.Generator().manual_seed(0)), 1)
+    on_card = unflatten_named({k: v.cuda() for k, v in
+                               flatten_named(params).items()}, params)
+    return cfg, m, params, on_card
+
+
+@pytest.mark.gpu
+def test_whisper_forward_backward_at_full_width_on_card_matches_the_cpu(
+        monkeypatch):
+    """Two + two layers of whisper-small at full width, f32 compute, B 1:
+    512 tokens over 1,536 frames (whisper's 1,500 audio frames rounded up
+    to the flash tile), forward and backward through flash (the f32
+    CUDA-core kernel on the card: encoder self 1,536 × 1,536, decoder self
+    causal, cross 512 × 1,536; the plain backward): the card's loss within
+    1e-5 relative of the CPU's and each parameter's gradient within 1e-3
+    of that leaf's largest CPU gradient; six flash launches (three per
+    layer pair)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.protect import flatten_named
+    from repro_torch.models.layers import softmax_cross_entropy
+    monkeypatch.setenv("REPRO_ATTN_IMPL", "flash")
+    cfg, m, params, on_card = _whisper_two_layers()
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, 513), dtype=torch.int32,
+                         generator=g)
+    frames = torch.randn(1, 1536, cfg.d_model, generator=g) * 0.02
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses, grads = [], []
+        for p, dev in ((params, "cpu"), (on_card, "cuda")):
+            leaves = flatten_named(p)
+            for v in leaves.values():
+                v.requires_grad_(True)
+            t = toks.to(dev)
+            ops.reset_launch_counts()
+            logits, _ = m.forward(p, {"tokens": t[:, :-1],
+                                      "frames": frames.to(dev)})
+            loss = softmax_cross_entropy(logits, t[:, 1:]).mean()
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append({k: v.grad.cpu() for k, v in leaves.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ops.launch_counts()["flashattn"] == 6
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert "dec_layers/cross_attn/wk" in grads[0]
+    for k, g0 in grads[0].items():
+        assert float(g0.abs().max()) > 0, k
+        bound = 1e-3 * float(g0.abs().max())
+        assert float((grads[1][k] - g0).abs().max()) <= bound, k
+
+
+@pytest.mark.gpu
+def test_whisper_decode_over_cross_kv_on_card_matches_the_cpu():
+    """16 ``encdec_decode_step``s of two + two whisper-small layers at full
+    width, f32 compute, B 2, over the cross K/V that
+    ``precompute_cross_kv`` makes from 1,536 encoded frames, on the card
+    against the CPU: the cross K/V within 1e-4 of the CPU's largest, the
+    logits within 1e-4 at every step, the self-KV cache after them
+    (written in place) within 1e-5; no flash launch in decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import encdec
+    cfg, m, params, on_card = _whisper_two_layers()
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn(2, 1536, cfg.d_model, generator=g) * 0.02
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                         generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            caches = []
+            for p, dev in ((params, "cpu"), (on_card, "cuda")):
+                k, v = encdec.precompute_cross_kv(
+                    p, encdec.encode(p, frames.to(dev), cfg), cfg)
+                c = m.init_caches(2, 16, device=dev, enc_len=1536)
+                c.cross_k.copy_(k)
+                c.cross_v.copy_(v)
+                caches.append(c)
+            c_cpu, c_gpu = caches
+            for a, b in ((c_cpu.cross_k, c_gpu.cross_k),
+                         (c_cpu.cross_v, c_gpu.cross_v)):
+                assert float((b.cpu() - a).abs().max()) <= \
+                    1e-4 * float(a.abs().max())
+            k_gpu = c_gpu.self_kv.k
+            ops.reset_launch_counts()
+            for i in range(16):
+                a, c_cpu = m.decode_step(params, toks[:, i:i + 1], c_cpu, i)
+                b, c_gpu = m.decode_step(on_card, toks[:, i:i + 1].cuda(),
+                                         c_gpu, i)
+                assert float((a - b.cpu()).abs().max()) <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert c_gpu.self_kv.k is k_gpu and bool(k_gpu.any())
+    for a, b in ((c_cpu.self_kv.k, c_gpu.self_kv.k),
+                 (c_cpu.self_kv.v, c_gpu.self_kv.v)):
+        assert float((b.cpu() - a).abs().max()) <= 1e-5
+    assert ops.launch_counts()["flashattn"] == 0

@@ -3,7 +3,8 @@ of the JAX package ``repro``, and its main paths (directives, training,
 a reduced MoE model's forward and donated step, serving and deploy, a
 reduced MLA model's decode step, served and its state stored, a reduced
 RWKV6 model's decode over its recurrent state, served and its state
-stored, a chaos scenario cell and an elastic restore) run with jax absent — as
+stored, a reduced whisper-small's forward and decode step, a chaos scenario
+cell and an elastic restore) run with jax absent — as
 ``chip_smoke.py`` drives them, which also refuses to run without a
 card."""
 import ast
@@ -183,6 +184,21 @@ rback = ctx12.load(ServeState(rm.init_caches(2, 16, device="cpu"),
 ctx12.shutdown()
 assert ctx12.restarted and int(rback.pos) == 8 and torch.equal(
     rback.caches[0].wkv, reng.state.caches[0].wkv)
+# the encoder-decoder: a reduced whisper-small's forward (frames and
+# tokens) and one decode step, its self-KV row written in place
+wcfg = get_arch("whisper-small").reduced()
+wm = build_model(wcfg)
+wparams = wm.init(torch.Generator().manual_seed(6))
+wb, _ = next_batch(init_data_state(0), wcfg, 2, 32)
+wlog, waux = wm.forward(wparams, wb)
+assert wlog.shape == (2, 32, wcfg.vocab_size) and float(waux) == 0.0
+assert bool(torch.isfinite(wlog.float()).all())
+wc = wm.init_caches(2, 16, device="cpu", enc_len=32)
+wlog1, wc2 = wm.decode_step(wparams, torch.ones((2, 1), dtype=torch.int32),
+                            wc, 0)
+assert wc2 is wc and wlog1.shape == (2, 1, wcfg.vocab_size)
+assert bool(wc.self_kv.k[:, :, 0].any()) and \
+    not bool(wc.self_kv.k[:, :, 1:].any())
 # chaos: one scenario cell on the CPU, the CLI tools, an elastic restore
 import repro_torch.tools.chkls, repro_torch.tools.chktrace
 from repro_torch.chaos.scenarios import run_scenario
@@ -220,7 +236,7 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     paths = sorted((SRC / "repro_torch").rglob("*.py"))
     scanned = {str(p.relative_to(SRC / "repro_torch")) for p in paths}
     assert {"models/attention.py", "models/transformer.py", "models/moe.py",
-            "models/ssm.py",
+            "models/ssm.py", "models/encdec.py", "dist/compression.py",
             "kernels/flashattn.py", "train/step.py", "train/loop.py",
             "launch/train.py", "data/synthetic.py", "configs/base.py",
             "core/incremental.py", "backends/scr.py", "objstore/tier.py",
@@ -251,8 +267,10 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     checkpointed training (run A vs store, fault, restore, resume) on a
     reduced config, serving and deploy, phase 8: the chaos matrix, the
     elastic rescale, the sharded directive restore with its fall back, and
-    the supervised kill, phase 10: MLA served and resumed, and phase 11:
-    RWKV6 served and resumed, every cadence store promoted to FULL."""
+    the supervised kill, phase 10: MLA served and resumed, phase 11:
+    RWKV6 served and resumed, every cadence store promoted to FULL, and
+    phase 12: the encoder-decoder (whisper-small) trained, faulted and
+    resumed."""
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
          "--width-div", "16", "--block-bytes", "256"],
@@ -266,6 +284,8 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
         == 3
     assert "[mla] restore:" in out.stdout
     assert "[ssm] every cadence store promoted to FULL (3)" in out.stdout
+    assert "[encdec] resumed TrainState equals run A's bit for bit" in \
+        out.stdout
     assert "generates the 4 tokens of an engine built on" in out.stdout
     assert "[chaos] matrix on cpu: 24/24 passed, data loss 0 B" in out.stdout
     assert "new world 3: every rank's rows on cpu equal" in out.stdout

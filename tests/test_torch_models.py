@@ -307,9 +307,9 @@ def test_lm_forward_bf16_matches_reference(monkeypatch):
 
 def test_unported_architectures_raise():
     gen = torch.Generator().manual_seed(0)
-    # the MoE layer, MLA and the SSM layers are ported: mixtral, minicpm3,
-    # rwkv6 and jamba (its attention, mamba and MoE layers) build; only the
-    # encoder-decoder raises
+    # every architecture is ported: mixtral, minicpm3, rwkv6, jamba (its
+    # attention, mamba and MoE layers) and the encoder-decoder build, and
+    # none raises
     assert "groups/0/moe/router" in flatten_named(
         build_model(get_arch("mixtral-8x7b").reduced()).init(gen))
     assert "groups/0/attn/w_uk" in flatten_named(
@@ -319,8 +319,9 @@ def test_unported_architectures_raise():
     assert {"groups/0/attn/wq", "groups/1/mixer/A_log",
             "groups/1/moe/router"} <= set(flatten_named(build_model(
                 get_arch("jamba-1.5-large-398b").reduced()).init(gen)))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(get_arch("whisper-small").reduced())
+    assert {"enc_layers/attn/wq", "dec_layers/cross_attn/wk"} <= set(
+        flatten_named(build_model(get_arch("whisper-small").reduced()).init(
+            gen)))
     # decode is ported for the dense and MLA models: MLA's latent cache
     # builds
     cfg = get_arch("minicpm3-4b").reduced()

@@ -218,7 +218,11 @@ def test_next_batch_is_a_pure_function_of_the_cursor():
                  id="minicpm3-4b-flash-1"),
     # RWKV6: the chunked WKV recurrence, no attention
     pytest.param("rwkv6-3b", "blockwise", 1, 1e-6,
-                 id="rwkv6-3b-blockwise-1")])
+                 id="rwkv6-3b-blockwise-1"),
+    # the encoder-decoder: frames beside tokens, cross-attention, gelu,
+    # tied logits
+    pytest.param("whisper-small", "flash", 1, 1e-6,
+                 id="whisper-small-flash-1")])
 def test_train_step_matches_jax(monkeypatch, arch, attn_impl, microbatches,
                                 eps):
     """Same weights, batch and f32 compute: new params, mu, nu within 1e-6
@@ -250,6 +254,9 @@ def test_train_step_matches_jax(monkeypatch, arch, attn_impl, microbatches,
                                     * 0.02).astype(np.float32)
         batch_np["labels"] = np.concatenate(
             [np.full((4, p), -1, np.int32), toks[:, 1:]], axis=1)
+    if cfg.encdec:                        # frames as many as tokens
+        batch_np["frames"] = (rng.randn(4, 32, cfg.d_model)
+                              * 0.02).astype(np.float32)
     jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     jnew, jmet = jax.jit(jmake_train_step(
         jbuild_model(jcfg), JAdamWConfig(**opt), remat=False,
