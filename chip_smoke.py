@@ -123,8 +123,8 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    (hf:ibm-granite/granite-3.0-1b-a400m-base: d_model 1536, 24 heads / 8
    KV heads of 64, 40 experts of d_ff 512, top-8, capacity factor 1.5,
    groups of 256, einsum dispatch, tied embed, vocab 49155; its depth cut
-   from 32 to ``MOE_LAYERS`` (16) for the time phase 10 takes), its
-   TrainState of 20.2 GB (params, mu, nu in f32; 36 leaves on the card),
+   from 32 to ``MOE_LAYERS`` (8) for the time phases 10 and 13 take), its
+   TrainState (params, mu, nu in f32; 36 leaves on the card),
    bf16 compute, run as phase 5 with donated steps (the
    parameters and moments updated in place, as the launcher does), with
    the same checks; the profiled step also reports the MoE dispatch and
@@ -168,13 +168,34 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    run as phase 5 with the same checks; flash runs 36 times per step and
    pass (12 encoder self, 12 decoder self causal, 12 cross).
 
+13. A multi-process mesh at full width: tinyllama-1.1b's parameters
+   (``build_model(get_arch("tinyllama-1.1b")).init``, the stacked tree,
+   4.40 GB in f32, one seed on every rank; no cut) on four processes that
+   share the one card (``torch.distributed.run``; gloo, since NCCL
+   refuses two ranks on one GPU), placed on a (data 2, model 2) mesh by
+   the sharding rules as ``DTensor`` leaves.  FTI on the CP-dedicated
+   thread stores a FULL (each box written once, by the lowest rank that
+   holds it, into its own shard files; every rank's container indexes
+   every owner's chunks), phase 3's sparse update is applied to the
+   global tree (each rank its own part, in place), and a DIFF store must
+   hold exactly the dirty blocks counted on the host from the rows
+   written; every worker exits.  Four new workers restore onto (1, 4) and
+   two onto (2, 1) into zero ``DTensor`` templates: every rank's values
+   must equal the source's same box bit for bit (SHA-256 per box,
+   hashed before the fault), the Plan snapshots must hold each rank's own
+   boxes and no sharded leaf may pass the host gather, and the launches
+   must be the design's (``blockhash2`` per store and leaf part hashed,
+   ``diffpack`` per DIFF store and group of rows on each rank, none on
+   the restores, which replay on the host).
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
 ``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
 rehearses phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 on the CPU with the
 plain versions (phases 5, 7, 9, 10, 11, 12 and 8's supervised kill on a
-reduced config) and prints no result.
+reduced config) and prints no result; ``--device cpu --mesh-only``
+rehearses phase 13 alone, on four gloo processes at the reduced config.
 """
 from __future__ import annotations
 
@@ -233,8 +254,10 @@ OBJSTORE_LAYERS = 4
 #: fetch gate of 0.30; at 8 they are 0.27.
 DEPLOY_LAYERS = 8
 #: phase 9's depth, cut from granite's 32 for the time phase 10 takes (its
-#: 39.6 GB FULL restored in 108–176 s)
-MOE_LAYERS = 16
+#: 39.6 GB FULL restored in 108–176 s), and from 16 to 8 for the time phase
+#: 13 takes: with 16 the script took 1,113.7 s of its 1,200 on a slower
+#: H100 host
+MOE_LAYERS = 8
 #: phase 10's depth, cut from minicpm3-4b's 62 for the time phase 12 takes:
 #: with all 62 the script took 985.1 s of its 1,200 on an H100 host, and
 #: host-bound phases run up to 1.25x slower on some hosts
@@ -2497,6 +2520,169 @@ def chaos_path(torch, args, device, ops) -> dict:
 
 # --------------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------------- #
+# phase 13: a multi-process mesh, shard-local stores, restores onto others
+# --------------------------------------------------------------------------- #
+
+MESH_ARCH = "tinyllama-1.1b"
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+#: (data, model) of the storing mesh and of the two restoring ones
+MESH_A, MESH_B, MESH_C = "2,2", "1,4", "2,1"
+#: seconds one world of workers may take
+MESH_WORLD_TIMEOUT = 420
+
+
+def run_world(n: int, argv: list, timeout: float) -> float:
+    """``repro_torch.launch.meshckpt`` on ``n`` processes of this machine
+    (``torch.distributed.run``, a rendezvous store on a free port); the
+    whole process group is killed on a timeout, and any failed worker
+    fails the phase."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="4")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "-m", "repro_torch.launch.meshckpt",
+         *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    t0 = time.time()
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"phase 13: {argv[0]} on {n} processes passed {timeout} s")
+    if proc.returncode != 0:
+        tail = "\n".join(text.splitlines()[-40:])
+        fail(f"phase 13: {argv[0]} on {n} processes exited "
+             f"{proc.returncode}:\n{tail}")
+    return t0
+
+
+def world_spans(t0: float, t_end: float, results: list) -> str:
+    """Where a world's wall time went: the launcher and imports before
+    ``main``, the join, the work, and the exit (slowest rank each)."""
+    tl = [r["timeline"] for r in results]
+    main = max(t["main"] for t in tl)
+    joined = max(t["joined"] for t in tl)
+    done = max(t["done"] for t in tl)
+    return (f"start-up {main - t0:.1f} s, join {joined - main:.1f} s, work "
+            f"{done - joined:.1f} s, exit {t_end - done:.1f} s")
+
+
+def mesh_path(torch, args, device, ops) -> dict:
+    """Phase 13.  tinyllama-1.1b's parameters (``build_model(...).init``,
+    one seed on every rank; the stacked tree, 4.40 GB in f32 at full
+    width) on four processes of one card: a (2, 2) mesh, FULL + sparse
+    update + DIFF through FTI's CP-dedicated thread, every worker exits;
+    four new workers restore onto (1, 4), two onto (2, 1), into zero
+    ``DTensor`` templates, every rank's box bit-exact (SHA-256 per box
+    against the source's, hashed before the fault).  → {"launches": summed
+    over every rank and world, "by_rank": per world and rank}"""
+    from repro_torch.core.formats import CHK5Reader
+    from repro_torch.launch.meshckpt import compare
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    ck, out = str(MESH_DIR / "ck"), str(MESH_DIR / "out")
+    common = ["--device", device.type, "--arch", MESH_ARCH, "--dir", ck,
+              "--out", out, "--seed", str(SEED + 21)]
+    if device.type == "cpu":
+        common += ["--reduced", "--block-bytes", str(args.block_bytes)]
+    t = run_world(4, ["store", "--mesh", MESH_A, "--targets",
+                      f"{MESH_B};{MESH_C}", *common], MESH_WORLD_TIMEOUT)
+    store_s = time.time() - t
+
+    def load(name: str) -> list:
+        files = sorted(Path(out).glob(f"{name}-rank*.json"),
+                       key=lambda f: int(f.stem.rsplit("rank", 1)[1]))
+        return [json.loads(f.read_text()) for f in files]
+
+    src = load("store")
+    if len(src) != 4:
+        fail(f"phase 13: {len(src)} of 4 store workers reported")
+    log(f"[mesh] store world: {world_spans(t, t + store_s, src)}")
+    for r in src:
+        tag = f"[mesh] store rank {r['rank']}"
+        for st in r["stores"]:
+            log(f"{tag}: id {st['id']} {st['kind']}: call "
+                f"{st['call_s']:.4f} s, plan_s {st['plan_s']:.4f}, total_s "
+                f"{st['total_s']:.4f}, digest/row bytes exchanged "
+                f"{st['exchanged_bytes']}")
+        log(f"{tag}: bytes written {r['bytes_written']}, init "
+            f"{r['init_s']:.2f} s, peak device "
+            f"{r.get('peak_bytes', 0) / 1e9:.2f} GB, launches "
+            f"{r['launches']}, by design {r['designed_launches']}")
+        if r["dirty_blocks"] != r["expected_dirty"]:
+            fail(f"phase 13: rank {r['rank']}'s DIFF holds "
+                 f"{r['dirty_blocks']} dirty blocks, the update wrote "
+                 f"{r['expected_dirty']}")
+        inv = r["stores"][0]["inventory"]
+        if set(inv["host"]) & set(r["shardable"]):
+            fail(f"phase 13: rank {r['rank']} gathered sharded leaves "
+                 f"{sorted(set(inv['host']) & set(r['shardable']))}")
+        want_chunks = 1 if r["rank"] < 2 else 0       # owners: data row 0
+        if set(inv["boxes"]) != set(r["shardable"]) or any(
+                len(c) != want_chunks for c in inv["boxes"].values()):
+            fail(f"phase 13: rank {r['rank']}'s Plan snapshot is not its "
+                 f"own boxes: {inv['boxes']}")
+    if "gloo_cuda" in src[0]:
+        log(f"[mesh] gloo collectives on a tensor on the card: "
+            f"{src[0]['gloo_cuda']}")
+    log(f"[mesh] dirty blocks: {src[0]['dirty_blocks']} on every rank, as "
+        f"counted from the rows the update wrote; no sharded leaf went "
+        f"through the host gather; ranks 0 and 1 snapshot one box of each "
+        f"of {len(src[0]['shardable'])} sharded leaves, ranks 2 and 3 none")
+    rank0 = Path(ck) / "nodes" / "rank0" / "ckpts" / "ckpt-1" / "rank0.chk5"
+    rd = CHK5Reader(str(rank0))
+    try:
+        for ds in rd.datasets():
+            if ds.startswith("shardidx/") and rd.info(ds)["attrs"][
+                    "n_chunks"] != 2:
+                fail(f"phase 13: rank0.chk5's {ds} lists "
+                     f"{rd.info(ds)['attrs']['n_chunks']} chunks, not 2")
+    finally:
+        rd.close()
+
+    by_rank = {"store": [r["launches"] for r in src]}
+    restored = {}
+    for mesh, n in ((MESH_B, 4), (MESH_C, 2)):
+        t = run_world(n, ["restore", "--mesh", mesh, "--source-mesh",
+                          MESH_A, *common], MESH_WORLD_TIMEOUT)
+        wall = time.time() - t
+        name = "restore-" + mesh.replace(",", "x")
+        got = load(name)
+        if len(got) != n or not all(g["restarted"] and g["placements_kept"]
+                                    for g in got):
+            fail(f"phase 13: restore onto ({mesh}): {len(got)} of {n} "
+                 "ranks restored with the template's placements")
+        boxes = compare(src, got)
+        restored[mesh] = boxes
+        by_rank[name] = [g["launches"] for g in got]
+        for g in got:
+            log(f"[mesh] restore ({mesh}) rank {g['rank']}: "
+                f"{g['restore_s']:.3f} s, peak device "
+                f"{g.get('peak_bytes', 0) / 1e9:.2f} GB, launches "
+                f"{g['launches']}")
+        log(f"[mesh] restore onto ({mesh}) on {n} processes: {boxes} box "
+            f"hashes equal the source's; world {wall:.1f} s: "
+            f"{world_spans(t, t + wall, got)}")
+    for r in src:
+        if device.type == "cuda" and r["launches"] != r["designed_launches"]:
+            fail(f"phase 13: rank {r['rank']} launched {r['launches']}, "
+                 f"the design says {r['designed_launches']}")
+    for name, counts in by_rank.items():
+        if name != "store" and any(c["diffunpack"] or c["blockhash2"]
+                                   or c["diffpack"] for c in counts):
+            fail(f"phase 13: {name} launched {counts}: the restore reads "
+                 "and replays on the host")
+    total = {k: sum(c[k] for cs in by_rank.values() for c in cs)
+             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
+    log(f"[mesh] a 4-process (2, 2) store restored bit-exact onto (1, 4) "
+        f"on 4 processes and (2, 1) on 2 on {device.type}; store world "
+        f"{store_s:.1f} s")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {"launches": total, "by_rank": by_rank}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2508,6 +2694,9 @@ def main() -> None:
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
                     help="CPU rehearsal only: hash block size")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="CPU rehearsal only: phase 13 alone, on four gloo "
+                         "processes at the reduced config")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from a checkout of the repo")
@@ -2522,6 +2711,13 @@ def main() -> None:
     from repro_torch.kernels import diffpack as dp
     from repro_torch.kernels import flashattn as fa
 
+    if args.device == "cpu" and args.mesh_only:
+        mesh_path(torch, args, torch.device("cpu"), ops)
+        log("chip_smoke: CPU rehearsal of phase 13 passed (no kernel ran; "
+            "no result)")
+        return
+    if args.mesh_only:
+        fail("--mesh-only is for the CPU rehearsal")
     if args.device == "cpu":
         main_path(torch, args, torch.device("cpu"), ops)
         training_path(torch, args, torch.device("cpu"), ops,
@@ -2613,6 +2809,10 @@ def main() -> None:
                            ENCDEC_DIR, batch=ENCDEC_BATCH, seq=ENCDEC_SEQ)
     log(f"[phase] checkpointed encoder-decoder training: "
         f"{time.time() - t:.1f} s")
+    t = time.time()
+    mesh = mesh_path(torch, args, device, ops)
+    log(f"[phase] 4-process mesh store, restores onto (1, 4) and (2, 1): "
+        f"{time.time() - t:.1f} s")
     log(f"[phase] all phases, the build included: "
         f"{time.time() - t_start:.1f} s")
 
@@ -2631,7 +2831,8 @@ def main() -> None:
              "chaos": chaos["launches"],
              "supervised": chaos["worker_launches"],
              "moe": moe["launches"], "mla": mla["launches"],
-             "ssm": ssm["launches"], "encdec": encdec["launches"]}
+             "ssm": ssm["launches"], "encdec": encdec["launches"],
+             "mesh": mesh["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -2660,7 +2861,10 @@ def main() -> None:
                                "supervised": chaos["supervised_layers"],
                                "moe": moe["layers"], "mla": mla["layers"],
                                "ssm": ssm["layers"],
-                               "encdec": encdec["layers"]}})
+                               "encdec": encdec["layers"], "mesh": 22}})
+        kernels[-1]["mesh_launches_by_rank"] = {
+            world: [c[name] for c in counts]
+            for world, counts in mesh["by_rank"].items()}
         for key in ("at_moe_shape", "at_encdec_shape"):
             if key in r:                 # flashattn at phases 9's and 12's
                 kernels[-1][key] = r[key]

@@ -17,7 +17,7 @@ from repro_torch.core import manifest as mf
 from repro_torch.core.comm import Communicator
 from repro_torch.core.formats import CHK5Writer
 from repro_torch.core.protect import to_host
-from repro_torch.core.resharding import split_sharded
+from repro_torch.core.resharding import split_sharded, write_shard_files
 from repro_torch.core.storage import CHK_FULL, StorageConfig, StoreReport
 from repro_torch.core.tiers import pack_named
 
@@ -69,7 +69,8 @@ class SCRBackend(Backend):
         root, cid = self._restart_src
         return os.path.join(mf.ckpt_dir(root, cid), f"rank{self.comm.rank}.chk5")
 
-    def complete_checkpoint(self, valid: bool) -> Optional[StoreReport]:
+    def complete_checkpoint(self, valid: bool, extra_files=()
+                            ) -> Optional[StoreReport]:
         assert self._phase == "ckpt"
         self._phase = None
         ckpt_id, level = self._cur_id, self._cur_level
@@ -84,7 +85,8 @@ class SCRBackend(Backend):
                      if os.path.isfile(p))
         payload = next(iter(self._routed.values()), os.path.join(
             d, f"rank{self.comm.rank}.chk5"))
-        rep = self.pipeline.finish_external(plan, payload, nbytes)
+        rep = self.pipeline.finish_external(plan, payload, nbytes,
+                                            extra_files)
         self.stats["stores"] += 1
         self.stats["bytes"] += nbytes
         return rep
@@ -122,15 +124,28 @@ class SCRBackend(Backend):
             self.stats["diff_fallbacks"] += 1      # SCR: kinds unsupported
         self.start_checkpoint(req.ckpt_id, min(req.level, self.max_level))
         path = self.route_file("openchk.chk5")
-        # every leaf gathers to one host snapshot in this port (no sharded
-        # tensors yet: core/resharding.py), so no shard files are written
-        gather, _sharded = split_sharded(req.named)
+        # sharded leaves snapshot shard-locally here too — the shard files
+        # land next to the routed container (same .tmp staging dir), so
+        # file-mode stores keep the atomic multi-file commit
+        gather, sharded = split_sharded(
+            req.named, enabled=self.cfg.sharded_store,
+            gather=getattr(self.comm, "exchange", None))
         named_host = to_host(gather)
+        shard_files: list = []
         with CHK5Writer(path) as w:
-            w.set_attrs("", {"kind": CHK_FULL, "id": req.ckpt_id})
+            attrs = {"kind": CHK_FULL, "id": req.ckpt_id}
+            if sharded:
+                attrs["sharded"] = True
+            w.set_attrs("", attrs)
+            if sharded:
+                shard_files = write_shard_files(
+                    os.path.dirname(path), f"rank{self.comm.rank}", w,
+                    sharded, req.specs, default_kind=CHK_FULL,
+                    max_writers=self.cfg.shard_writers,
+                    gather_index=self.pipeline.shard_index_gather())
             pack_named(w, named_host, req.specs,
                        self.pipeline.pack_tiers)
-        return self.complete_checkpoint(valid=True)
+        return self.complete_checkpoint(valid=True, extra_files=shard_files)
 
     def tcl_load(self, req=None):
         cid = self.start_restart()

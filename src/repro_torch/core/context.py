@@ -64,6 +64,8 @@ class CheckpointConfig:
     rs_parity: int = 2
     promote_threshold: float = 0.95
     dedicated_thread: bool = True              # CP-dedicated threads (§4.2.2)
+    sharded_snapshot: bool = True              # shard-local Plan snapshots
+    shard_writers: int = 4                     # parallel shard-file writers
     # object-store L4 (repro_torch.objstore): content-addressed uploads + catalog
     objstore: bool = True
     objstore_url: Optional[str] = None         # None → file:<dir>/objstore
@@ -88,6 +90,8 @@ class CheckpointConfig:
             erasure_scheme=self.erasure_scheme,
             rs_parity=self.rs_parity,
             promote_threshold=self.promote_threshold,
+            sharded_store=self.sharded_snapshot,
+            shard_writers=self.shard_writers,
             objstore=self.objstore,
             objstore_url=self.objstore_url,
             objstore_chunk_bytes=self.objstore_chunk_bytes,

@@ -22,6 +22,28 @@ calling thread in submission order (a failed tail only invalidates) —
 which is what lets DIFF stores run on a CP-dedicated thread without
 racing the digest chain.
 
+Sharded leaves (``DTensor``, :class:`ShardPart`): the digests and dirty
+rows are those of the *global* leaf, bit for bit the JAX package's, so a
+DIFF container holds global-block digests and rows whichever mesh wrote
+it.  The hash is a wrapping sum over a block's words salted by their
+position in the block, so it splits over ranks:
+
+- a box whose contiguous runs of the global bytes start and end on block
+  boundaries (a row shard: ``embed`` Shard(0), ``wo``/``w_down`` Shard(1)
+  when stacked) is hashed in place; its blocks are global blocks;
+- any other box (a column shard cuts every row, so its blocks span ranks)
+  is hashed inside a zero buffer of the global leaf's size with only its
+  own values set; the global digest of a block is the sum of the owners'
+  digests less ``(owners - 1)`` digests of a zero block.
+
+Only the box owners hash (one blockhash launch per owned leaf part), and
+only the digest vectors (8 B per block) cross ranks: one ``exchange`` per
+store.  A DIFF store then packs each owner's part of the dirty blocks
+(the zero-buffer rows of a column shard hold zeros outside the owner's
+values, so the owners' rows OR together) in the same ``pack_dirty_many``
+as the replicated leaves' rows, and one more ``exchange`` gives every rank
+every sharded leaf's delta: every rank's container holds it.
+
 Break-even guard: the paper measures differential checkpointing to pay off
 below a ~95 % dirty ratio (Fig. 7).  When the observed ratio exceeds
 ``promote_threshold`` the engine *promotes* the store to a FULL checkpoint.
@@ -39,6 +61,7 @@ leaf to the device once per delta.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -47,8 +70,18 @@ import torch
 
 from repro_torch.core.formats import numpy_to_tensor, str_to_torch_dtype
 from repro_torch.core.formats import str_to_dtype as str_dtype
+from repro_torch.core.formats import torch_dtype_to_str
 from repro_torch.core.protect import leaf_dtype_str
-from repro_torch.kernels import ops
+from repro_torch.core.resharding import (
+    Gather,
+    box_owners,
+    box_runs,
+    box_slices,
+    mesh_boxes,
+    sharding_of,
+)
+from repro_torch.dist.context import Box
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.blockhash import n_blocks_of
 
 
@@ -111,6 +144,108 @@ def row_groups(items: Sequence[Tuple[Any, int]], cap: int
     return groups
 
 
+@dataclass
+class ShardPart:
+    """One sharded (``DTensor``) leaf as this rank sees it for digests and
+    packs: the global layout, the writer rank of every distinct box, and
+    this rank's box when it writes one."""
+    path: str
+    dtype: str                          # CHK5 dtype string
+    shape: Tuple[int, ...]
+    block_bytes: int
+    owners: Dict[int, Box]              # writer rank → its box
+    local: Optional[torch.Tensor]       # this rank's box, if it writes it
+    rank: int
+    #: the zero-buffer of a column shard, kept from hash to pack
+    padded: Optional[torch.Tensor] = None
+
+    @property
+    def n_blocks(self) -> int:
+        n = int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+        return n_blocks_of(n * str_dtype(self.dtype).itemsize,
+                           self.block_bytes)
+
+    def _runs_aligned(self, box: Box) -> bool:
+        isz = str_dtype(self.dtype).itemsize
+        n = int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+        starts, length = box_runs(box, self.shape)
+        if np.any((starts * isz) % self.block_bytes):
+            return False
+        return (length * isz) % self.block_bytes == 0 or (
+            starts.size == 1 and int(starts[0]) + length == n)
+
+    @functools.cached_property
+    def aligned(self) -> bool:
+        """Every owner's box hashes in place (block-aligned runs)."""
+        return all(self._runs_aligned(b) for b in self.owners.values())
+
+    def blocks_of(self, rank: int) -> np.ndarray:
+        """Global block index of each block of ``rank``'s box (aligned
+        layouts), ascending."""
+        isz = str_dtype(self.dtype).itemsize
+        starts, length = box_runs(self.owners[rank], self.shape)
+        per = -(-length * isz // self.block_bytes)
+        first = starts * isz // self.block_bytes
+        return (first[:, None] + np.arange(per)[None, :]).reshape(-1)
+
+    def hash_source(self) -> torch.Tensor:
+        """What this rank hashes: its box in place, or the zero buffer of
+        the global leaf's size with its box set (kept for the pack)."""
+        if self.aligned:
+            return self.local
+        if self.padded is None:
+            isz = self.local.element_size()
+            buf = torch.zeros(self.n_blocks * self.block_bytes // isz,
+                              dtype=self.local.dtype,
+                              device=self.local.device)
+            n = int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+            buf[:n].view(self.shape)[box_slices(self.owners[self.rank])] \
+                .copy_(self.local)
+            self.padded = buf
+        return self.padded
+
+
+def shard_part(path: str, leaf: Any, block_bytes: int) -> ShardPart:
+    """The :class:`ShardPart` of a sharded ``DTensor`` leaf on this rank."""
+    import torch.distributed as dist
+    sh = sharding_of(leaf)
+    shape = tuple(int(d) for d in leaf.shape)
+    owners = {r: b for b, r in box_owners(
+        mesh_boxes(sh.mesh, sh.spec, shape)).items()}
+    me = dist.get_rank()
+    local = leaf.to_local().contiguous() if me in owners else None
+    return ShardPart(path=path, dtype=torch_dtype_to_str(leaf.dtype),
+                     shape=shape, block_bytes=block_bytes, owners=owners,
+                     local=local, rank=me)
+
+
+_ZERO_DIGEST: Dict[int, np.ndarray] = {}
+
+
+def zero_block_digest(block_bytes: int) -> np.ndarray:
+    """(2,) u32 digest of a block of zeros (a constant of the hash)."""
+    if block_bytes not in _ZERO_DIGEST:
+        _ZERO_DIGEST[block_bytes] = ops.u32_numpy(ref.blockhash2_ref(
+            torch.zeros((1, block_bytes // 4), dtype=torch.int32)))[0]
+    return _ZERO_DIGEST[block_bytes]
+
+
+def combine_digests(part: ShardPart, got: Dict[int, np.ndarray]
+                    ) -> np.ndarray:
+    """Every owner's digests of one sharded leaf → the global leaf's
+    ``(n_blocks, 2)`` u32 digests."""
+    out = np.zeros((part.n_blocks, 2), np.int64)
+    if part.aligned:
+        for r, d in got.items():
+            out[part.blocks_of(r)] = d
+    else:
+        for d in got.values():
+            out += d
+        out -= (len(part.owners) - 1) * zero_block_digest(
+            part.block_bytes).astype(np.int64)
+    return np.mod(out, 1 << 32).astype(np.uint32)
+
+
 class DiffEngine:
     def __init__(self, block_bytes: int = ops.DEFAULT_BLOCK_BYTES,
                  promote_threshold: float = 0.95):
@@ -162,11 +297,33 @@ class DiffEngine:
         """After a FULL store: record digests so the next DIFF has a base."""
         self.commit_digests(self.launch_digests(named))
 
-    def compute_deltas(self, named: Dict[str, Any]
+    def sharded_digests(self, parts: Dict[str, ShardPart],
+                        exchange: Gather) -> Dict[str, np.ndarray]:
+        """The global leaf's digests of every sharded leaf in ``parts``:
+        each owner hashes its part (one launch per part), and one
+        ``exchange`` of the digest vectors gives every rank every
+        leaf's."""
+        mine = {p: ops.u32_numpy(ops.blockhash(part.hash_source(),
+                                               self.block_bytes))
+                for p, part in parts.items() if part.local is not None}
+        got = exchange(mine)
+        return {p: combine_digests(part, {r: g[p] for r, g in enumerate(got)
+                                          if p in g})
+                for p, part in parts.items()}
+
+    def commit_sharded_digests(self, digests: Dict[str, np.ndarray]) -> None:
+        self._digests.update(digests)
+
+    def compute_deltas(self, named: Dict[str, Any],
+                       parts: Optional[Dict[str, ShardPart]] = None,
+                       exchange: Optional[Gather] = None
                        ) -> Tuple[Optional[List[LeafDelta]], DiffStats]:
         """→ (deltas, stats); deltas=None means "promote to FULL".  The
         packed dirty blocks are host copies, complete when this returns:
-        one pack launch and one D2H per group of :meth:`_pack_dirty`."""
+        one pack launch and one D2H per group of :meth:`_pack_dirty`.
+        ``parts`` are sharded leaves (global digests and rows, through
+        ``exchange``)."""
+        parts = parts or {}
         stats = DiffStats()
         pending: List[Tuple[str, torch.Tensor, np.ndarray, np.ndarray]] = []
         for path, d in self.launch_digests(named).items():
@@ -175,6 +332,14 @@ class DiffEngine:
             stats.total_blocks += h_new.shape[0]
             stats.dirty_blocks += int(dirty.shape[0])
             pending.append((path, as_tensor(named[path]), h_new, dirty))
+        global_h = self.sharded_digests(parts, exchange) if parts else {}
+        sharded: List[Tuple[ShardPart, np.ndarray, np.ndarray]] = []
+        for path, part in parts.items():
+            h_new = global_h[path]
+            dirty = ops.dirty_indices(h_new, self._digests.get(path))
+            stats.total_blocks += h_new.shape[0]
+            stats.dirty_blocks += int(dirty.shape[0])
+            sharded.append((part, h_new, dirty))
 
         if stats.dirty_ratio > self.promote_threshold:
             stats.promoted_full = True
@@ -182,10 +347,31 @@ class DiffEngine:
             # the already-computed digests so the caller need not re-hash
             for path, _leaf, h_new, _dirty in pending:
                 self._digests[path] = h_new
+            self._digests.update(global_h)
+            for part in parts.values():
+                part.padded = None
             return None, stats
 
+        # this rank's part of each sharded leaf's dirty blocks joins the
+        # replicated leaves' rows in one pack
+        own = []
+        for part, _h, dirty in sharded:
+            if part.local is None:
+                continue
+            if part.aligned:
+                blocks = part.blocks_of(part.rank)
+                idx = np.searchsorted(blocks, dirty[np.isin(dirty, blocks)])
+            else:
+                idx = dirty
+            own.append((part.path, part.hash_source(), None,
+                        idx.astype(np.int32)))
+        packed = self._pack_dirty(pending + own)
+        for part in parts.values():
+            part.padded = None
+        got = exchange({p: packed[p] for p, *_ in own if p in packed}) \
+            if parts else []
+
         deltas = []
-        packed = self._pack_dirty(pending)
         for path, leaf, h_new, dirty in pending:
             payload = packed.get(path)
             if payload is None:
@@ -200,6 +386,21 @@ class DiffEngine:
                 payload=payload,
                 digests=h_new,
             ))
+        for part, h_new, dirty in sharded:
+            payload = np.zeros((dirty.size, self.block_bytes // 4), np.uint32)
+            for r, g in enumerate(got):
+                rows = g.get(part.path)
+                if rows is None:
+                    continue
+                if part.aligned:
+                    payload[np.isin(dirty, part.blocks_of(r))] = rows
+                else:
+                    payload |= rows
+            stats.bytes_written += payload.nbytes
+            deltas.append(LeafDelta(
+                path=part.path, dtype=part.dtype, shape=list(part.shape),
+                n_blocks=int(h_new.shape[0]), dirty_idx=dirty,
+                payload=payload, digests=h_new))
         for d in deltas:
             self._digests[d.path] = d.digests
         return deltas, stats

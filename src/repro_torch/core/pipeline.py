@@ -52,7 +52,7 @@ import os
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,7 @@ from repro_torch.core.diff import (
     LeafDelta,
     apply_delta,
     leaf_to_u32_flat,
+    shard_part,
     u32_flat_to_leaf,
 )
 from repro_torch.core.formats import CHK5Reader, CHK5Writer
@@ -73,7 +74,9 @@ from repro_torch.core.protect import CHK_DIFF, CHK_FULL, Protect, to_host
 from repro_torch.core.resharding import (
     ShardedLeafRef,
     ShardSnapshot,
+    local_value,
     resolve_shard_refs,
+    shardable,
     split_sharded,
     write_shard_files,
 )
@@ -105,6 +108,7 @@ class StorageConfig:
     ranks_per_node: int = 1
     custom_groups: Optional[dict] = None       # SCR-style group overrides
     shard_writers: int = 4                     # parallel shard-file writers
+    sharded_store: bool = True                 # shard-local Plan snapshots
     # --- object-store L4 (repro_torch.objstore) ---------------------- #
     objstore: bool = True                      # compose ObjectStoreTier at L4
     objstore_url: Optional[str] = None         # None → file:<root>/objstore
@@ -248,6 +252,9 @@ class CheckpointPipeline:
         # observer hook: called with every committed StoreReport (the
         # cadence controller's store-cost feed — chaos/cadence.py)
         self.on_report = None
+        # what the newest Plan snapshotted: the leaves of its host snapshot
+        # and the boxes of its shard-local one — (offset, shape) per chunk
+        self.last_plan_inventory: Dict[str, Any] = {}
         os.makedirs(self.ctx.local_root, exist_ok=True)
         os.makedirs(cfg.global_root, exist_ok=True)
 
@@ -301,17 +308,22 @@ class CheckpointPipeline:
         deltas = None
         dirty_ratio = None
         promoted = False
+        # a replicated DTensor is its local tensor here; a sharded one is
+        # hashed and snapshotted box by box (ShardPart, split_sharded)
+        named = {p: local_value(v) for p, v in req.named.items()}
+        sharded_paths = {p for p, v in named.items() if shardable(v)}
+        exchange = self._exchange() if sharded_paths else None
 
         def eff_kind(path: str) -> str:
             spec = specs.get(path)
             return spec.kind if (spec is not None and spec.kind) else req.kind
 
-        diff_paths = [p for p in req.named if eff_kind(p) == CHK_DIFF]
+        diff_paths = [p for p in named if eff_kind(p) == CHK_DIFF]
         if diff_paths and not req.diff_supported:
             diff_paths = []                 # VeloC/SCR: no checkpoint kinds
             attrs["diff_fallback"] = True
         diff_set = set(diff_paths)
-        full_paths = [p for p in req.named if p not in diff_set]
+        full_paths = [p for p in named if p not in diff_set]
 
         # epoch read BEFORE delta computation: an invalidate() racing in
         # from a CP-thread failure mid-plan must make finish() refuse this
@@ -320,22 +332,20 @@ class CheckpointPipeline:
         promoted_paths: List[str] = []
         if diff_paths:
             deltas, stats = self.diff.compute_deltas(
-                {p: req.named[p] for p in diff_paths})
+                {p: named[p] for p in diff_paths if p not in sharded_paths},
+                self._parts(named, diff_paths, sharded_paths), exchange)
             dirty_ratio = stats.dirty_ratio
             if deltas is None:              # above break-even: promote
                 promoted = True
                 promoted_paths = diff_paths
-                full_paths = list(req.named)
+                full_paths = list(named)
             else:
                 attrs["base_required"] = True
         kind = CHK_DIFF if deltas is not None else CHK_FULL
 
         named_host = None
+        sharded = None
         if full_paths:
-            # every leaf takes the gather path in this port (no sharded
-            # tensors yet: core/resharding.py)
-            gather, _sharded = split_sharded(
-                {p: req.named[p] for p in full_paths})
             # digest bookkeeping is skipped when the backend can never
             # consume it (no checkpoint kinds) and for leaves the promote
             # path just hashed.  Otherwise it is owed: the kernels are
@@ -344,20 +354,37 @@ class CheckpointPipeline:
             # the snapshot holds even if the caller updates the tensors in
             # place the moment plan() returns.  They are committed once the
             # snapshot is on the host, as a DIFF plan commits its own; a
-            # failed tail invalidates them (finish()).
+            # failed tail invalidates them (finish()).  A sharded leaf's
+            # digests are the global leaf's, exchanged between its owners
+            # before its snapshot.
             promoted_set = set(promoted_paths)
             owed = [p for p in full_paths if p not in promoted_set]
             digests = None
             if req.diff_supported and owed:
                 digests = self.diff.launch_digests(
-                    {p: req.named[p] for p in owed})
+                    {p: named[p] for p in owed if p not in sharded_paths})
+                parts = self._parts(named, owed, sharded_paths)
+                if parts:
+                    self.diff.commit_sharded_digests(
+                        self.diff.sharded_digests(parts, exchange))
+            # shard-local snapshot: a sharded leaf contributes the box this
+            # rank owns, never a gathered global array (the no-gather store
+            # path); every other leaf is one host snapshot
+            gather, sharded = split_sharded(
+                {p: named[p] for p in full_paths},
+                enabled=self.cfg.sharded_store, gather=exchange)
+            sharded = sharded or None
             named_host = to_host(gather) if gather else {}
             if digests is not None:
                 self.diff.commit_digests(digests)
+        self.last_plan_inventory = {
+            "host": sorted(named_host or {}),
+            "boxes": {p: [(c.offset, c.shape) for c in snap.chunks]
+                      for p, snap in (sharded or {}).items()}}
 
         plan = Plan(ckpt_id=req.ckpt_id, level=level, kind=kind, tiers=tiers,
                     root=tiers[0].root, attrs=attrs, extra=extra,
-                    named_host=named_host, deltas=deltas,
+                    named_host=named_host, sharded=sharded, deltas=deltas,
                     specs=dict(specs) if specs else None,
                     dirty_ratio=dirty_ratio, promoted_full=promoted,
                     digest_epoch=epoch if kind == CHK_DIFF else -1)
@@ -366,6 +393,25 @@ class CheckpointPipeline:
         self._compute_reuse_keys(plan)
         plan.plan_seconds = time.time() - t_plan
         return plan
+
+    def _parts(self, named: Dict[str, Any], paths: List[str],
+               sharded_paths) -> Dict[str, Any]:
+        return {p: shard_part(p, named[p], self.cfg.block_bytes)
+                for p in paths if p in sharded_paths}
+
+    def _exchange(self):
+        """The calling thread's collective (the communicator's own group
+        for Plan: ``ProcessGroupComm.exchange``) — a sharded leaf's store
+        needs every rank of its mesh."""
+        exchange = getattr(self.comm, "exchange", None)
+        if exchange is None and torch.distributed.get_world_size() == 1:
+            return self.comm.allgather          # one process: [obj]
+        if exchange is None:
+            raise RuntimeError(
+                f"{type(self.comm).__name__} cannot checkpoint a sharded "
+                "DTensor leaf: it needs a communicator over the mesh's "
+                "processes (repro_torch.dist.comm.ProcessGroupComm)")
+        return exchange
 
     def abort_plan(self, plan: Plan) -> None:
         """A planned store will never reach finish() (e.g. the CP submit
@@ -429,7 +475,8 @@ class CheckpointPipeline:
                     d, f"rank{self.comm.rank}", w, plan.sharded, plan.specs,
                     default_kind=CHK_FULL,
                     max_writers=self.cfg.shard_writers,
-                    sink_factory=lambda bn: self._pack_sink(plan, bn))
+                    sink_factory=lambda bn: self._pack_sink(plan, bn),
+                    gather_index=self.shard_index_gather())
             if plan.named_host:
                 pack_named(w, plan.named_host, plan.specs, self.pack_tiers)
             if plan.deltas:
@@ -438,6 +485,13 @@ class CheckpointPipeline:
             os.path.getsize(p) for p in shard_files)
         return Packed(stage_dir=d, path=path, nbytes=nbytes,
                       shard_files=shard_files)
+
+    def shard_index_gather(self):
+        """The cross-rank shard index's allgather (ranks that run at once,
+        on the CP thread's group), or None for one process."""
+        if getattr(self.comm, "concurrent", False) and self.comm.world > 1:
+            return self.comm.allgather
+        return None
 
     def _pack_sink(self, plan: Plan, basename: str):
         """First streaming chunk sink any tier of this plan's stack offers
@@ -505,16 +559,24 @@ class CheckpointPipeline:
              # and the restore path refuses it)
              "files": [os.path.basename(packed.path)]
              + [os.path.basename(p) for p in packed.shard_files]})
-        mf.write_manifest(plan.root, plan.ckpt_id, {
-            "kind": plan.kind, "level": plan.level, "world": self.comm.world,
-            "group_size": self.topo.group_size,
-            "erasure": self.cfg.erasure_scheme,
-            "block_bytes": self.cfg.block_bytes,
-            "ranks": statuses,
-            **plan.extra,
-        })
-        mf.commit(plan.root, plan.ckpt_id, keep_last=0)  # pruning below
-        self.prune_chains(plan.root)
+        # a directory every rank shares (the global tier) is committed by
+        # rank 0 alone when ranks run at once; the others wait for it
+        shared = (getattr(self.comm, "concurrent", False)
+                  and plan.root == self.cfg.global_root)
+        if not shared or self.comm.rank == 0:
+            mf.write_manifest(plan.root, plan.ckpt_id, {
+                "kind": plan.kind, "level": plan.level,
+                "world": self.comm.world,
+                "group_size": self.topo.group_size,
+                "erasure": self.cfg.erasure_scheme,
+                "block_bytes": self.cfg.block_bytes,
+                "ranks": statuses,
+                **plan.extra,
+            })
+            mf.commit(plan.root, plan.ckpt_id, keep_last=0)  # pruning below
+            self.prune_chains(plan.root)
+        if shared:
+            self.comm.barrier()
         # post-commit tier hooks, after the atomic rename: the objstore
         # tier joins its chunk uploads and publishes the catalog entry
         # here — a crash before this point leaves the previous catalog
@@ -609,13 +671,16 @@ class CheckpointPipeline:
             raise
 
     def finish_external(self, plan: Plan, payload_path: str,
-                        nbytes: int) -> StoreReport:
+                        nbytes: int,
+                        extra_files: Sequence[str] = ()) -> StoreReport:
         """Place + Commit for a payload staged outside Pack (the file was
-        already written into ``ckpt-<id>.tmp`` under ``plan.root``)."""
+        already written into ``ckpt-<id>.tmp`` under ``plan.root``;
+        ``extra_files`` are its sibling shard files, if any)."""
         plan.t0 = time.time()       # exclude any CP-queue wait from seconds
         packed = Packed(
             stage_dir=mf.ckpt_dir(plan.root, plan.ckpt_id, tmp=True),
-            path=payload_path, nbytes=nbytes)
+            path=payload_path, nbytes=nbytes,
+            shard_files=list(extra_files))
         with ttrace.span("pipeline.store", ckpt_id=plan.ckpt_id,
                          level=plan.level, kind=plan.kind,
                          external=True) as sp:
@@ -658,7 +723,7 @@ class CheckpointPipeline:
         Includes reachable peers' node-local tiers (a restarted rank on a
         fresh node recovers from partner/parity held by survivors)."""
         roots = [self.ctx.local_root, self.cfg.global_root]
-        for r in range(self.comm.world):
+        for r in self.ctx.peer_ranks():
             if r == self.comm.rank:
                 continue
             peer = self.comm.peer_local_dir(r)
@@ -678,8 +743,16 @@ class CheckpointPipeline:
     def recover_payload(self, root: str, ckpt_id: int, rank: int
                         ) -> Optional[Tuple[bytes, Dict, str]]:
         """Walk the tier ladder L1 → L4 for one rank payload.
-        Returns (payload, manifest, tier_name) or None."""
+        Returns (payload, manifest, tier_name) or None.
+
+        A rank past the stored world (a restore on more processes, or a
+        one-process checkpoint restored onto a mesh) reads the container
+        of rank ``rank mod world``: every rank container of a sharded
+        store indexes every shard and holds the replicated leaves."""
         man = mf.try_read_manifest(root, ckpt_id) or {}
+        world = man.get("world")
+        if isinstance(world, int) and 0 < world <= rank:
+            rank %= world
         dirs = self.ctx.recovery_dirs(root, ckpt_id)   # scanned once, shared
         for tier in self.ladder:
             blob = tier.recover(ckpt_id, rank, root, man, dirs)
@@ -707,10 +780,13 @@ class CheckpointPipeline:
 
         Sharded leaves (``shardidx/``, written by either package's
         shard-local store) restore from their shard files, found across the
-        id's recovery dirs (partner replicas included).  By default they
-        are materialized to host arrays; ``lazy_sharded=True`` returns
+        id's recovery dirs (peers' node-local dirs and partner replicas
+        included).  By default they are materialized to host arrays (their
+        DIFF links replayed on the host); ``lazy_sharded=True`` returns
         :class:`~repro_torch.core.resharding.ShardedLeafRef` handles
-        instead, which TCL reads onto the template leaf's device.  An
+        instead, carrying the DIFF links of any leaf not named in
+        ``devices``: TCL reads each onto the template leaf's layout, a
+        ``DTensor`` template rank reading and replaying only its box.  An
         incomplete shard set, or containers that fail to read, parse or
         verify, make the walk fall back to an older id (with a warning
         for the latter).  The replay on the devices runs after that walk:
@@ -722,7 +798,8 @@ class CheckpointPipeline:
             by_id.setdefault(i, []).append(root)
         for ckpt_id in sorted(by_id, reverse=True):
             try:
-                got = self._try_restore(ckpt_id, by_id, rank, devices or {})
+                got = self._try_restore(ckpt_id, by_id, rank, devices or {},
+                                        lazy_sharded)
             except Exception as e:
                 # a checkpoint whose container fails to parse/verify (e.g.
                 # pre-digest corruption that stored a matching chunk digest)
@@ -764,7 +841,7 @@ class CheckpointPipeline:
         return None
 
     def _try_restore(self, ckpt_id: int, by_id, rank: int,
-                     devices: Dict[str, Any]):
+                     devices: Dict[str, Any], lazy_sharded: bool = False):
         # walk back to the base FULL
         chain: List[Tuple[bytes, Dict, str]] = []
         via = None
@@ -825,6 +902,14 @@ class CheckpointPipeline:
                     info = rd.info(ds)["attrs"]
                     idx = rd.read_dataset(f"delta/{name}/idx")
                     blocks = rd.read_dataset(f"delta/{name}/blocks")
+                    dt, shp = info["dtype"], info["shape"]
+                    if (lazy_sharded and name not in devices
+                            and isinstance(named.get(name), ShardedLeafRef)):
+                        # replayed box by box when the leaf is read (each
+                        # rank of a mesh reads only its own box)
+                        named[name].add_delta(idx, blocks, bb)
+                        meta_shape.pop(name, None)
+                        continue
                     if name not in flat_u32 and name not in replay:
                         if name not in named:
                             return None     # chain broken
@@ -837,7 +922,6 @@ class CheckpointPipeline:
                             replay.start(name, named[name], bb)
                         else:
                             flat_u32[name] = leaf_to_u32_flat(named[name], bb)
-                    dt, shp = info["dtype"], info["shape"]
                     if name in replay:
                         replay.add(name, link, idx, blocks, bb, dt, shp)
                     else:

@@ -190,6 +190,13 @@ def _children(tree: Any) -> List:
     return [(str(i), v) for i, v in enumerate(tree)]
 
 
+def _path_str(path: List[str]) -> str:
+    """Path components → the canonical slash path: ``["params", "groups",
+    "0", "attn", "wq"]`` → ``"params/groups/0/attn/wq"`` (the one form
+    selector matching and the sharding rules' lookup agree on)."""
+    return "/".join(path)
+
+
 def _walk(tree: Any, prefix: List[str], out: List):
     """Depth-first (path components, leaf) pairs in jax's leaf order."""
     if tree is None:
@@ -198,7 +205,7 @@ def _walk(tree: Any, prefix: List[str], out: List):
         for key, child in _children(tree):
             _walk(child, prefix + [key], out)
     else:
-        out.append(("/".join(prefix), tree))
+        out.append((_path_str(prefix), tree))
 
 
 def flatten_named(tree: Any) -> Dict[str, Any]:

@@ -1,36 +1,48 @@
-"""Shard files and elastic restore: state saved under one world layout,
-restored onto another (node-count changes after failures, pod rescale),
-with the on-disk layout of the JAX package's ``core/resharding.py``, so
-the files of either package read in the other byte for byte.
+"""Shard-local snapshots, shard files and elastic restore: state saved
+under one mesh or world, restored onto another (node-count changes after
+failures, pod rescale, DP/TP-width change), with the on-disk layout of the
+JAX package's ``core/resharding.py``, so the files of either package read
+in the other byte for byte.
 
-Write side (the pipeline's Pack stage calls in here):
+A sharded leaf is a ``DTensor``: each rank of its ``DeviceMesh`` holds the
+index box its mesh coordinate owns (``dist/context.shard_box``).
 
-- A :class:`ShardSnapshot` is the Plan-stage snapshot of one sharded leaf:
-  global metadata plus its distinct chunks (:class:`ShardChunk`), each a
-  host numpy array or a tensor whose device→host copy completes when Pack
-  writes it.
-- :func:`write_shard_files` writes the chunks as ``shard-<k>``
+Write side (the pipeline's Plan/Pack stages call in here):
+
+- :func:`snapshot_shards` snapshots **only the box this rank owns** of a
+  sharded leaf.  Ownership: of the ranks that hold the same box (the
+  replicas along a data axis), the lowest rank writes it; the others
+  contribute no chunk.  The snapshot is a completed host copy when Plan
+  returns (torch tensors are updated in place).  No host buffer of the
+  global leaf size is ever allocated.
+- :func:`write_shard_files` writes the owned chunks as ``shard-<k>``
   sub-datasets spread over ``rank<r>.shard<j>.chk5`` files (one writer
   thread per file, in parallel) and records the index — global shape,
   chunk offsets, chunk file/dataset names — as a ``shardidx/<name>``
-  dataset in the rank's main container.
+  dataset in the rank's main container.  With a communicator, every
+  owner's index reaches every rank (the cross-rank index), so each rank's
+  container lists the whole mesh's chunks: ``rank0.chk5`` with the files
+  it names is a complete checkpoint.
 
 Read side:
 
 - :class:`ShardedLeafRef` is the lazy handle the restore path hands out
-  for a sharded leaf: index metadata + resolved chunk files.  It reads
-  arbitrary index boxes by touching only the overlapping byte ranges of
-  each chunk file (CHK5 partial reads).  int8-compressed chunks decode
-  transparently (:func:`read_chunk_slab`).
+  for a sharded leaf: index metadata + resolved chunk files, plus the
+  DIFF links to replay over it.  It reads arbitrary index boxes by
+  touching only the overlapping byte ranges of each chunk file (CHK5
+  partial reads) and replays each link's dirty blocks inside the box
+  alone.  int8-compressed chunks decode transparently
+  (:func:`read_chunk_slab`).
+- :func:`assemble_onto` builds a ``DTensor`` for a target sharding from
+  this rank's box alone (``DTensor.from_local``, no collective) — store on
+  2×2, restore on 1×4 or on two ranks, no global host array in between.
 - :class:`ElasticLoader` assembles arbitrary regions of the global arrays
   from any number of chunk files: the multi-dim ``shard/<name>/shard-<k>``
   layout and the axis-0 ``shard/<name>`` layout of :func:`save_sharded`
   (the DP/ZeRO rank-file path).
 
-Every read returns host numpy arrays; :func:`load_named_onto` and TCL put
-them on the target device.  Shard-local snapshots of ``DTensor`` leaves
-(``split_sharded`` finds none yet: every leaf gathers), assembly onto a
-``DeviceMesh`` and the mesh helpers are ROADMAP Queue 1, item 5.
+Mesh-level helpers (``reshard_tree`` / ``gather_tree``) build restart
+templates and bit-exact global views for tests.
 """
 from __future__ import annotations
 
@@ -40,11 +52,12 @@ import re
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.chaos import inject as chaos
 from repro_torch.core.formats import (
     CHK5CorruptionError,
     CHK5Reader,
@@ -53,7 +66,204 @@ from repro_torch.core.formats import (
     numpy_to_tensor,
     resolve_precision,
     str_to_dtype,
+    torch_dtype_to_str,
 )
+from repro_torch.dist.context import (
+    Box,
+    NamedSharding,
+    PartitionSpec,
+    mesh_coords,
+    placements_to_spec,
+    shard_box,
+    spec_to_placements,
+)
+
+#: ``allgather``-like callable: this rank's object → every rank's, in order
+Gather = Callable[[Any], List[Any]]
+
+
+# -------------------------------------------------------------------------- #
+# DTensor layouts
+# -------------------------------------------------------------------------- #
+
+
+def is_dtensor(x: Any) -> bool:
+    if not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def mesh_device(mesh: Any) -> torch.device:
+    """This rank's device of ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def sharding_of(leaf: Any) -> NamedSharding:
+    """A ``DTensor``'s layout as a per-dim :class:`NamedSharding`."""
+    return NamedSharding(leaf.device_mesh, placements_to_spec(
+        leaf.device_mesh, leaf.placements, leaf.ndim))
+
+
+def mesh_boxes(mesh: Any, spec: PartitionSpec,
+               shape: Sequence[int]) -> Dict[int, Box]:
+    """Rank → the box its mesh coordinate holds."""
+    return {r: shard_box(shape, mesh, spec, c)
+            for r, c in mesh_coords(mesh).items()}
+
+
+def box_owners(boxes: Mapping[int, Box]) -> Dict[Box, int]:
+    """Distinct non-empty box → the lowest rank holding it (its writer)."""
+    out: Dict[Box, int] = {}
+    for r in sorted(boxes):
+        b = boxes[r]
+        if all(hi > lo for lo, hi in b) and b not in out:
+            out[b] = r
+    return out
+
+
+def box_slices(box: Box) -> Tuple[slice, ...]:
+    return tuple(slice(lo, hi) for lo, hi in box)
+
+
+def _c_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """Element strides of a C-order array of ``shape``."""
+    return tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
+                 for i in range(len(shape)))
+
+
+def box_runs(box: Box, shape: Sequence[int]) -> Tuple[np.ndarray, int]:
+    """The contiguous runs of the global C-order flat array that ``box``
+    covers → (their start elements, ascending; their common length).  The
+    box's own C-order flat array is these runs back to back."""
+    shape = tuple(int(n) for n in shape)
+    nd = len(shape)
+    if nd == 0:
+        return np.zeros(1, np.int64), 1
+    k = nd - 1
+    while k > 0 and box[k] == (0, shape[k]):
+        k -= 1
+    strides = _c_strides(shape)
+    inner = strides[k]
+    starts = np.array([box[k][0] * strides[k]], np.int64)
+    for i in range(k - 1, -1, -1):
+        lo, hi = box[i]
+        starts = (np.arange(lo, hi, dtype=np.int64)[:, None] * strides[i]
+                  + starts[None, :]).reshape(-1)
+    return starts, (box[k][1] - box[k][0]) * inner
+
+
+def shardable(leaf: Any) -> bool:
+    """Should Plan snapshot this leaf shard-locally?  True for a
+    ``DTensor`` with any placement that is not ``Replicate`` (a fully
+    replicated leaf holds the global array on every rank, so the plain
+    host snapshot is already shard-local)."""
+    if not is_dtensor(leaf):
+        return False
+    from torch.distributed.tensor import Replicate
+    return any(not isinstance(p, Replicate) for p in leaf.placements)
+
+
+def local_value(leaf: Any) -> Any:
+    """A replicated ``DTensor`` → its local tensor (the global value); any
+    other leaf as it is."""
+    if is_dtensor(leaf) and not shardable(leaf):
+        return leaf.to_local()
+    return leaf
+
+
+def reshard_tree(tree: Any, shardings: Any) -> Any:
+    """Place every leaf of ``tree`` per ``shardings`` (a matching tree of
+    :class:`NamedSharding` — e.g. ``dist.sharding.param_shardings`` under a
+    target mesh).  A plain tensor (the global value, the same on every
+    rank) becomes a ``DTensor``: each rank slices its own box and calls
+    ``DTensor.from_local``, with no collective.  A ``DTensor`` is
+    redistributed on its mesh.  This is how a restart template declares
+    the layout a checkpoint should restore onto."""
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    named = flatten_named(tree)
+    sh = flatten_named(shardings)
+    return unflatten_named({p: _place(x, sh[p]) for p, x in named.items()},
+                           tree)
+
+
+def _place(x: Any, sharding: NamedSharding) -> Any:
+    from torch.distributed.tensor import DTensor
+    placements = spec_to_placements(sharding.mesh, sharding.spec)
+    if is_dtensor(x):
+        return x.redistribute(sharding.mesh, placements)
+    if not isinstance(x, torch.Tensor):
+        x = numpy_to_tensor(np.asarray(x), mesh_device(sharding.mesh))
+    box = shard_box(x.shape, sharding.mesh, sharding.spec,
+                    sharding.mesh.get_coordinate())
+    local = x[box_slices(box)].clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sharding.mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=_c_strides(x.shape))
+
+
+def zeros_onto(struct: Any, shardings: Any) -> Any:
+    """A tree of zero ``DTensor`` leaves shaped like ``struct`` (tensors or
+    ``meta`` tensors: ``Model.param_struct()``) and laid out per
+    ``shardings``: each rank allocates only its own box — a restart
+    template that costs no global array anywhere."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    sh = flatten_named(shardings)
+
+    def zero(path: str, leaf: Any) -> Any:
+        s = sh[path]
+        shape = tuple(int(d) for d in leaf.shape)
+        box = shard_box(shape, s.mesh, s.spec, s.mesh.get_coordinate())
+        local = torch.zeros(tuple(hi - lo for lo, hi in box),
+                            dtype=leaf.dtype, device=mesh_device(s.mesh))
+        return DTensor.from_local(local, s.mesh,
+                                  spec_to_placements(s.mesh, s.spec),
+                                  run_check=False, shape=shape,
+                                  stride=_c_strides(shape))
+
+    return unflatten_named({p: zero(p, x) for p, x in
+                            flatten_named(struct).items()}, struct)
+
+
+def gather_leaf(leaf: Any, gather: Gather) -> np.ndarray:
+    """The bit-exact global value of a ``DTensor`` on the host: every
+    box's owner sends its local bytes through ``gather`` (host copies; no
+    collective on the device)."""
+    if not shardable(leaf):
+        return as_numpy(local_value(leaf))
+    sh = sharding_of(leaf)
+    boxes = mesh_boxes(sh.mesh, sh.spec, leaf.shape)
+    me = torch.distributed.get_rank()
+    mine = boxes[me]
+    piece = (mine, as_numpy(leaf.to_local())) \
+        if box_owners(boxes).get(mine) == me else None
+    out = np.empty(tuple(leaf.shape),
+                   str_to_dtype(torch_dtype_to_str(leaf.dtype)))
+    for got in gather(piece):
+        if got is not None:
+            out[box_slices(got[0])] = got[1]
+    return out
+
+
+def gather_tree(tree: Any, gather: Optional[Gather] = None) -> Any:
+    """Every leaf's bit-exact global value on the host (a
+    ``np.ndarray``), independent of the mesh it lived on.  Every rank must
+    call it.  ``gather`` defaults to an object allgather over the world
+    group."""
+    from repro_torch.core.protect import flatten_named, unflatten_named
+    if gather is None:
+        def gather(obj):
+            out = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(out, obj)
+            return out
+    named = flatten_named(tree)
+    return unflatten_named({p: gather_leaf(x, gather)
+                            if isinstance(x, torch.Tensor)
+                            else np.asarray(x) for p, x in named.items()},
+                           tree)
 
 
 # -------------------------------------------------------------------------- #
@@ -108,12 +318,46 @@ class ShardSnapshot:
         return sum(c.nbytes for c in self.chunks)
 
 
-def split_sharded(named: Dict[str, Any]
+def snapshot_shards(leaf: Any) -> ShardSnapshot:
+    """Snapshot the box this rank owns of a sharded ``DTensor`` (none when
+    a lower rank holds the same box — shard-box ownership), as a completed
+    host copy."""
+    sh = sharding_of(leaf)
+    shape = tuple(int(d) for d in leaf.shape)
+    boxes = mesh_boxes(sh.mesh, sh.spec, shape)
+    me = torch.distributed.get_rank()
+    mine = boxes[me]
+    chunks: List[ShardChunk] = []
+    if box_owners(boxes).get(mine) == me:
+        chunks.append(ShardChunk(
+            offset=tuple(lo for lo, _ in mine),
+            shape=tuple(hi - lo for lo, hi in mine),
+            data=as_numpy(leaf.to_local())))
+    return ShardSnapshot(dtype=torch_dtype_to_str(leaf.dtype),
+                         global_shape=shape, chunks=chunks)
+
+
+def split_sharded(named: Dict[str, Any], enabled: bool = True,
+                  gather: Optional[Gather] = None
                   ) -> Tuple[Dict[str, Any], Dict[str, ShardSnapshot]]:
     """Partition protected leaves into (gather-snapshot leaves, shard-local
-    snapshots).  Every leaf gathers here: the port has no sharded tensors
-    yet (ROADMAP Queue 1, item 5)."""
-    return dict(named), {}
+    snapshots) — the Plan-stage split.  Replicated ``DTensor`` leaves join
+    the gather side as their local tensor.  With ``enabled=False`` a
+    sharded leaf is gathered to its global value on the host through
+    ``gather`` (host copies) instead."""
+    sharded: Dict[str, ShardSnapshot] = {}
+    host: Dict[str, Any] = {}
+    for p, v in named.items():
+        if not shardable(v):
+            host[p] = local_value(v)
+        elif enabled:
+            sharded[p] = snapshot_shards(v)
+        elif gather is None:
+            raise ValueError(f"{p}: a sharded leaf gathered to the host "
+                             "needs a communicator")
+        else:
+            host[p] = gather_leaf(v, gather)
+    return host, sharded
 
 
 # -------------------------------------------------------------------------- #
@@ -121,6 +365,9 @@ def split_sharded(named: Dict[str, Any]
 # -------------------------------------------------------------------------- #
 
 _SHARD_FILE_RE = re.compile(r"^rank(\d+)\.shard(\d+)\.chk5$")
+
+#: the chaos site hit after each shard file is written
+SHARD_FILE_SITE = "shard.file"
 
 #: side-channel group for shard-chunk codec state (int8 block scales) —
 #: same convention as the gathered-leaf ``codecaux/`` group in core/tiers
@@ -154,7 +401,8 @@ def write_shard_files(stage_dir: str, prefix: str, index_writer: CHK5Writer,
                       specs: Optional[Dict[str, Any]] = None,
                       default_kind: str = "FULL",
                       max_writers: int = 4,
-                      sink_factory=None) -> List[str]:
+                      sink_factory=None,
+                      gather_index: Optional[Gather] = None) -> List[str]:
     """Write every owned chunk as a ``shard-<k>`` sub-dataset spread over
     ``<prefix>.shard<j>.chk5`` files in ``stage_dir`` — one writer thread
     per file, running in parallel — and record each leaf's shard index in
@@ -183,6 +431,12 @@ def write_shard_files(stage_dir: str, prefix: str, index_writer: CHK5Writer,
     per shard file (the fused Pack → upload path): sinks are created here
     on the caller's thread — registration mutates tier state — and each
     writer thread only feeds its own sink through ``CHK5Writer``.
+
+    ``gather_index`` (the communicator's ``allgather``, on a multi-process
+    mesh) carries every rank's chunk index to every rank: each rank's
+    ``shardidx/<name>`` then lists the chunks of every owner, in rank
+    order, whoever wrote them — a rank that owns no box of a leaf writes
+    no shard file for it, and its container still indexes the leaf.
     """
     from repro_torch.core.tiers import clause_attrs, int8_encode_array
     specs = specs or {}
@@ -196,7 +450,7 @@ def write_shard_files(stage_dir: str, prefix: str, index_writer: CHK5Writer,
         for k, chunk in enumerate(snap.chunks):
             work.append((name, k, chunk, cast, spec, codec))
 
-    n_files = max(1, min(int(max_writers), len(work)))
+    n_files = min(max(1, int(max_writers)), len(work))
     paths = [os.path.join(stage_dir, shard_file_name(prefix, j))
              for j in range(n_files)]
     assignment: Dict[Tuple[str, int], int] = {
@@ -237,6 +491,10 @@ def write_shard_files(stage_dir: str, prefix: str, index_writer: CHK5Writer,
                         w.write_dataset(_chunk_scale_dataset(ds), scale)
                         continue
                 w.write_dataset(ds, arr, attrs)
+        # a fault site after each shard file (not in chaos.SITES, which
+        # stays the reference's list): ctx stage, file
+        chaos.fire(SHARD_FILE_SITE, stage=os.path.basename(stage_dir),
+                   file=os.path.basename(paths[j]))
 
     # the file count (the on-disk layout) is deterministic; only the thread
     # count adapts to the machine's cores
@@ -255,23 +513,31 @@ def write_shard_files(stage_dir: str, prefix: str, index_writer: CHK5Writer,
         finally:
             os.close(fd)
 
+    # this rank's chunk index → every rank's (the cross-rank index)
+    index = {name: [(tuple(c.offset), tuple(c.shape),
+                     os.path.basename(paths[assignment[(name, k)]]),
+                     _chunk_dataset(name, k))
+                    for k, c in enumerate(sharded[name].chunks)]
+             for name in sorted(sharded)}
+    if gather_index is not None:
+        every = gather_index(index)
+        index = {name: [c for got in every for c in got.get(name, ())]
+                 for name in index}
     for name in sorted(sharded):
         snap = sharded[name]
         spec = specs.get(name)
         ndim = len(snap.global_shape)
-        table = np.zeros((len(snap.chunks), 2 * max(ndim, 1)), np.int64)
-        for k, chunk in enumerate(snap.chunks):
-            table[k, :ndim] = chunk.offset
-            table[k, ndim:2 * ndim] = chunk.shape
+        chunks = index[name]
+        table = np.zeros((len(chunks), 2 * max(ndim, 1)), np.int64)
+        for k, (offset, shape, _f, _ds) in enumerate(chunks):
+            table[k, :ndim] = offset
+            table[k, ndim:2 * ndim] = shape
         attrs = dict(clause_attrs(spec, default_kind),
                      global_shape=[int(x) for x in snap.global_shape],
                      dtype=snap.dtype,
-                     n_chunks=len(snap.chunks),
-                     files=[os.path.basename(
-                         paths[assignment[(name, k)]])
-                         for k in range(len(snap.chunks))],
-                     datasets=[_chunk_dataset(name, k)
-                               for k in range(len(snap.chunks))])
+                     n_chunks=len(chunks),
+                     files=[f for _o, _s, f, _ds in chunks],
+                     datasets=[ds for _o, _s, _f, ds in chunks])
         if spec is not None and getattr(spec, "compress", None):
             if np.issubdtype(str_to_dtype(snap.dtype), np.floating):
                 # informational on the index: the per-chunk attrs are
@@ -391,9 +657,11 @@ def _assemble_box(box, dtype, chunks, read_slab, label: str,
 
 class ShardedLeafRef:
     """Lazy handle to one sharded leaf of a committed checkpoint: the
-    shard index plus resolved chunk files.  ``read_index`` assembles any
-    index box touching only the overlapping leading-dim slabs of each
-    chunk file; ``materialize`` assembles the full global array."""
+    shard index plus resolved chunk files, and the DIFF links of the
+    restore chain that touch it (:meth:`add_delta`).  ``read_index``
+    assembles any index box touching only the overlapping leading-dim
+    slabs of each chunk file, then replays each link's dirty blocks inside
+    the box; ``materialize`` assembles the full global array."""
 
     def __init__(self, name: str, dtype: str, shape: Sequence[int],
                  chunks: List[_ChunkRef],
@@ -403,10 +671,21 @@ class ShardedLeafRef:
         self.shape = tuple(int(x) for x in shape)
         self.chunks = chunks
         self.precision = precision                # stored-cast marker
+        #: (dirty block indices, (n_dirty, block_bytes/4) u32 rows,
+        #: block_bytes) per DIFF link, oldest first
+        self.deltas: List[Tuple[np.ndarray, np.ndarray, int]] = []
 
     def __repr__(self) -> str:
         return (f"ShardedLeafRef({self.name!r}, shape={self.shape}, "
-                f"dtype={self.dtype.str}, chunks={len(self.chunks)})")
+                f"dtype={self.dtype.str}, chunks={len(self.chunks)}, "
+                f"deltas={len(self.deltas)})")
+
+    def add_delta(self, dirty_idx: np.ndarray, payload: np.ndarray,
+                  block_bytes: int) -> None:
+        """Queue one DIFF link's dirty blocks of this leaf (global block
+        indices over its C-order bytes) for every later read."""
+        self.deltas.append((np.asarray(dirty_idx, np.int64),
+                            np.ascontiguousarray(payload), int(block_bytes)))
 
     def _box(self, index) -> Tuple[Tuple[int, int], ...]:
         if index is None:
@@ -417,7 +696,8 @@ class ShardedLeafRef:
                    _readers: Optional[Dict[str, CHK5Reader]] = None
                    ) -> np.ndarray:
         """Assemble global box ``index`` (tuple of slices; None → all)
-        from the overlapping chunks, reading only overlapping slabs."""
+        from the overlapping chunks, reading only overlapping slabs, and
+        replay the queued DIFF links inside it."""
         readers = {} if _readers is None else _readers
 
         def read_slab(c: _ChunkRef, r_lo: int, r_hi: int) -> np.ndarray:
@@ -426,19 +706,60 @@ class ShardedLeafRef:
                 rd = readers[c.path] = CHK5Reader(c.path)
             return read_chunk_slab(rd, c.dataset, c.shape, r_lo, r_hi)
 
+        box = self._box(index)
         try:
-            return _assemble_box(
-                self._box(index), self.dtype,
+            out = _assemble_box(
+                box, self.dtype,
                 ((c.offset, c.shape, c) for c in self.chunks),
                 read_slab, self.name, exc_cls=CHK5CorruptionError)
         finally:
             if _readers is None:
                 for rd in readers.values():
                     rd.close()
+        for dirty, payload, bb in self.deltas:
+            replay_box(out, box, self.shape, dirty, payload, bb)
+        return out
 
     def materialize(self) -> np.ndarray:
         """The full global array on the host."""
         return self.read_index(None)
+
+
+def replay_box(out: np.ndarray, box: Box, shape: Sequence[int],
+               dirty: np.ndarray, payload: np.ndarray,
+               block_bytes: int) -> None:
+    """Write the parts of one DIFF link's dirty blocks (global block
+    indices over the leaf's C-order bytes, ``payload`` their rows) that
+    fall inside ``box`` into ``out``, the box's values, in place — the
+    host replay of a delta over one rank's box, as ``apply_delta`` over
+    the whole leaf."""
+    if not len(dirty):
+        return
+    flat = out.reshape(-1)
+    per = block_bytes // out.itemsize                  # elements per block
+    rows = np.ascontiguousarray(payload).view(out.dtype).reshape(-1, per)
+    starts, length = box_runs(box, shape)
+    ends = starts + length
+    for b, row in zip(dirty.tolist(), rows):
+        g0, g1 = b * per, (b + 1) * per
+        j0 = int(np.searchsorted(ends, g0, side="right"))
+        j1 = int(np.searchsorted(starts, g1, side="left"))
+        for j in range(j0, j1):
+            lo, hi = max(g0, int(starts[j])), min(g1, int(ends[j]))
+            at = j * length + lo - int(starts[j])
+            flat[at:at + hi - lo] = row[lo - g0:hi - g0]
+
+
+def indexed_shard_files(container: str) -> List[str]:
+    """Every shard file the ``shardidx/`` datasets of a rank container
+    name (the cross-rank index of a multi-process store names other
+    ranks' files too)."""
+    rd = CHK5Reader(container)
+    try:
+        return sorted({f for ds in rd.datasets() if ds.startswith("shardidx/")
+                       for f in rd.info(ds)["attrs"]["files"]})
+    finally:
+        rd.close()
 
 
 def resolve_shard_refs(rd, dirs: Sequence[str], rank: int
@@ -505,6 +826,27 @@ def resolve_shard_refs(rd, dirs: Sequence[str], rank: int
             name, meta["dtype"], gshape, chunks,
             precision=meta.get("precision"))
     return out
+
+
+def assemble_onto(ref: Any, sharding: NamedSharding) -> Any:
+    """Build a ``DTensor`` laid out per ``sharding`` from this rank's box
+    alone: the box is read from the shard files (``ShardedLeafRef``, its
+    DIFF links replayed inside it) or sliced from a host array, placed on
+    this rank's device of the mesh, and wrapped by ``DTensor.from_local``
+    — no collective, and the global array never exists on the host."""
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    shape = tuple(int(d) for d in ref.shape)
+    box = shard_box(shape, mesh, sharding.spec, mesh.get_coordinate())
+    if isinstance(ref, ShardedLeafRef):
+        host = ref.read_index(box_slices(box))
+    else:
+        host = np.ascontiguousarray(np.asarray(ref)[box_slices(box)])
+    local = numpy_to_tensor(host, mesh_device(mesh))
+    return DTensor.from_local(local, mesh,
+                              spec_to_placements(mesh, sharding.spec),
+                              run_check=False, shape=shape,
+                              stride=_c_strides(shape))
 
 
 # -------------------------------------------------------------------------- #
@@ -621,23 +963,39 @@ class ElasticLoader:
 
 
 def load_named_onto(container: str, dirs: Sequence[str], rank: int,
-                    devices: Mapping[str, Any]) -> Dict[str, Any]:
-    """Load every leaf of a committed rank container onto its device — the
+                    devices: Optional[Mapping[str, Any]] = None, *,
+                    shardings: Any = None) -> Dict[str, Any]:
+    """Load every leaf of a committed rank container onto its target — the
     serve-side loader.
 
-    ``devices`` maps ``name → torch.device`` (missing names stay host numpy
-    arrays); it stands in for the reference's shardings, and a device is
-    the one-device case of its ``assemble_onto``.  Sharded leaves
-    (``shardidx/``) resolve their chunk files across ``dirs`` and assemble
-    through :meth:`ShardedLeafRef.read_index`; plain ``data/`` leaves
-    decode through the tier codec dispatch (int8 etc.).  Raises
-    :class:`CHK5CorruptionError` when the shard set is incomplete — a torn
-    load must fail loudly, the deploy path never installs a partial tree."""
+    ``shardings`` maps ``name → NamedSharding`` (or is one sharding for
+    every leaf): such a leaf lands as a ``DTensor`` of that layout through
+    :func:`assemble_onto`, this rank reading only its box — a checkpoint
+    stored from a 2×2 training mesh lands on a 1×4 serving mesh without
+    either side seeing the full tree.  ``devices`` maps ``name →
+    torch.device`` for a leaf that lands whole on one device (the
+    one-device case).  Names in neither stay host numpy arrays.  Sharded
+    leaves (``shardidx/``) resolve their chunk files across ``dirs``;
+    plain ``data/`` leaves decode through the tier codec dispatch (int8
+    etc.).  Raises :class:`CHK5CorruptionError` when the shard set is
+    incomplete — a torn load must fail loudly, the deploy path never
+    installs a partial tree."""
     from repro_torch.core.tiers import decode_leaf   # tiers ⇄ resharding
+    devices = devices or {}
 
-    def place(name: str, arr: np.ndarray):
+    def sharding_for(name: str):
+        if shardings is None or isinstance(shardings, NamedSharding):
+            return shardings
+        return shardings.get(name)
+
+    def place(name: str, leaf: Any):
+        sh = sharding_for(name)
+        if sh is not None:
+            return assemble_onto(leaf, sh)
+        if isinstance(leaf, ShardedLeafRef):
+            leaf = leaf.materialize()
         dev = devices.get(name)
-        return arr if dev is None else numpy_to_tensor(arr, dev)
+        return leaf if dev is None else numpy_to_tensor(leaf, dev)
 
     named: Dict[str, Any] = {}
     rd = CHK5Reader(container)
@@ -648,7 +1006,7 @@ def load_named_onto(container: str, dirs: Sequence[str], rank: int,
                 f"{container}: incomplete shard set across {list(dirs)} — "
                 f"refusing a partial load")
         for name, ref in refs.items():
-            named[name] = place(name, ref.read_index(None))
+            named[name] = place(name, ref)
         for ds in rd.datasets():
             if not ds.startswith("data/"):
                 continue

@@ -16,12 +16,20 @@ the backend has one.
 On restore, every leaf lands on the template leaf's device with the
 template's dtype (a dtype that differs from the checkpoint's is an error,
 as in the JAX package).  Numpy and scalar template leaves restore as
-numpy arrays.  TCL hands the pipeline each tensor leaf's device
+numpy arrays.  TCL hands the pipeline each plain tensor leaf's device
 (``LoadRequest.devices``), so a DIFF chain replays there; such a leaf
 comes back already on its device and is taken as it is.  A sharded leaf
 (a ``ShardedLeafRef`` from a shard-file checkpoint) passes the same shape
 and dtype checks against the template, is read once into host memory and
 placed on the template leaf's device.
+
+Mesh-change restart: a template leaf that is a ``DTensor`` is the
+*target* layout (``core/resharding.reshard_tree`` builds such templates).
+Its value is built by ``assemble_onto`` on the template's mesh and
+placements: this rank reads only its box from the shard files (or slices
+it from a gathered leaf) and replays the DIFF links inside it — store on
+2×2, restore on 1×4 or on another number of processes, without the
+global array on any host.
 """
 from __future__ import annotations
 
@@ -42,7 +50,12 @@ from repro_torch.core.protect import (
     resolve_specs,
     unflatten_named,
 )
-from repro_torch.core.resharding import ShardedLeafRef
+from repro_torch.core.resharding import (
+    ShardedLeafRef,
+    assemble_onto,
+    is_dtensor,
+    sharding_of,
+)
 from repro_torch.core.storage import CHK_FULL, StorageConfig, StoreReport
 
 
@@ -89,7 +102,8 @@ class TCL:
         named_t = flatten_named(req.template)
         req.specs = resolve_specs(named_t, req.protects)
         req.devices = {p: named_t[p].device for p in req.specs
-                       if isinstance(named_t[p], torch.Tensor)}
+                       if isinstance(named_t[p], torch.Tensor)
+                       and not is_dtensor(named_t[p])}
         restored = self.backend.tcl_load(req)
         if restored is None:
             return None
@@ -112,6 +126,10 @@ class TCL:
                 raise TypeError(
                     f"{path}: checkpoint dtype {got_dt} != "
                     f"template {leaf_dtype_str(leaf)}")
+            if is_dtensor(leaf):
+                # the template's layout is the target: this rank's box
+                merged[path] = assemble_onto(arr, sharding_of(leaf))
+                continue
             if isinstance(arr, ShardedLeafRef):
                 arr = arr.materialize()      # one read into host memory
             # the counterpart of jax.device_put(arr, template sharding):

@@ -103,11 +103,17 @@ class TierContext:
     def global_root(self) -> str:
         return self.cfg.global_root
 
+    def peer_ranks(self) -> List[int]:
+        """Ranks whose node-local storage recovery may read: the world's,
+        plus those of an earlier, larger world on this host when the
+        communicator knows them (``ProcessGroupComm.peer_ranks``)."""
+        return list(getattr(self.comm, "peer_ranks", range(self.comm.world)))
+
     def peer_ckpt_dirs(self, ckpt_id: int) -> List[str]:
         """The local-tier checkpoint dir on every reachable node (recovery
         pulls partner replicas / parity from surviving nodes' storage)."""
         dirs = []
-        for r in range(self.comm.world):
+        for r in self.peer_ranks():
             if r == self.comm.rank:
                 base = self.local_root
             else:

@@ -1,0 +1,96 @@
+"""Meshes, and how a worker process joins its world.
+
+A ``DeviceMesh`` of N devices is N processes, one per mesh coordinate.
+:func:`join_from_env` is what a worker started by ``python -m
+torch.distributed.run`` calls first: it reads the rank, the world size and
+the store address that the launcher put in the environment (the only
+place in the package that reads them), joins the process group over gloo,
+and binds the process to its device.  Every rank of a one-card machine
+shares ``cuda:0``: NCCL refuses two ranks on one GPU, so the world's
+collectives run over gloo, and the checkpoint path exchanges host bytes
+only (``dist/comm.py``).
+
+``make_production_mesh`` and ``make_host_mesh`` are functions (not
+module-level constants), so importing this module touches no process
+group.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+#: seconds a collective (and the join itself) may wait for the slowest rank
+JOIN_TIMEOUT_S = 600
+
+
+def _init_device_mesh(device_type: str, shape: Sequence[int],
+                      names: Sequence[str]):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(int(n) for n in shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str] = ("data", "model"),
+              device_type: Optional[str] = None):
+    """A mesh of the joined world's ranks, row-major over ``shape`` (the
+    product of ``shape`` is the world size)."""
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return _init_device_mesh(device_type, shape, names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+def make_host_mesh(device_type: str = "cpu"):
+    """Single-device mesh for CPU smoke runs (examples/tests): joins a
+    one-process world first when the process has none."""
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh((1, 1), ("data", "model"), device_type)
+
+
+def join(rank: int, world: int, init_method: str, *,
+         device_type: str = "cpu", local_rank: int = 0,
+         timeout_s: float = JOIN_TIMEOUT_S) -> torch.device:
+    """Join the process group (gloo) and bind the process to its device:
+    ``cuda:<local_rank mod the cards this machine has>`` or the CPU."""
+    if device_type == "cuda":
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cpu")
+    dist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return device
+
+
+def join_from_env(device_type: str = "cpu",
+                  timeout_s: float = JOIN_TIMEOUT_S
+                  ) -> Tuple[int, int, torch.device]:
+    """A ``torch.distributed.run`` worker joins its world: → (rank, world
+    size, device)."""
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    device = join(rank, world,
+                  f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                  device_type=device_type,
+                  local_rank=int(env.get("LOCAL_RANK", rank)),
+                  timeout_s=timeout_s)
+    return rank, world, device
+
+
+def leave() -> None:
+    """Leave the process group (every rank, at the end of its work)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -38,7 +38,7 @@ from repro_torch.models.layers import (
     mlp,
     rmsnorm,
 )
-from repro_torch.models.transformer import _stack, _unstack, dtype_of
+from repro_torch.models.transformer import _stack, _unstack, dtype_of, meta_tree
 
 Params = Dict[str, Any]
 
@@ -103,17 +103,7 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Params:
 def encdec_param_struct(cfg: ArchConfig) -> Params:
     """The parameter tree's shapes and dtypes on the ``meta`` device (no
     memory; traced under a fake-tensor mode)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    with FakeTensorMode():
-        fake = init_encdec(torch.Generator(), cfg)
-
-    def meta(tree):
-        if isinstance(tree, dict):
-            return {k: meta(v) for k, v in tree.items()}
-        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
-
-    return meta(fake)
+    return meta_tree(init_encdec, cfg)
 
 
 def _layers(stacked: Params) -> list:

@@ -42,7 +42,7 @@ Forward signatures:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +62,25 @@ from repro_torch.models.layers import (
 )
 
 Params = Dict[str, Any]
+
+
+def meta_tree(init: Callable[..., Params], cfg: ArchConfig) -> Params:
+    """``init(gen, cfg)``'s tree with every leaf a ``meta`` tensor of the
+    same shape and dtype: traced under a fake-tensor mode, so no value is
+    drawn and no memory is taken (the dry-run and sharding-rule input)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init(torch.Generator(), cfg)
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(meta(v) for v in tree)
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    return meta(fake)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -181,6 +200,12 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
         params["lm_head"] = embed_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype)
     return params
+
+
+def lm_param_struct(cfg: ArchConfig) -> Params:
+    """The parameter tree's shapes, dtypes and paths on the ``meta``
+    device, as :func:`init_lm` would draw it."""
+    return meta_tree(init_lm, cfg)
 
 
 # --------------------------------------------------------------------------- #

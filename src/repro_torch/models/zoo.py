@@ -7,6 +7,7 @@ layers, and hybrid layer patterns: ``family`` ``dense``, ``vlm``,
 batch carries ``frames`` beside ``tokens``):
 
   init(gen)                      → params on ``gen.device``
+  param_struct()                 → the same tree as ``meta`` tensors
   forward(params, batch, remat=) → (logits, aux)     batch: dict of tensors
   init_caches(batch, max_len, device="cuda") → caches
   decode_step(params, token, caches, pos) → (logits, caches)
@@ -32,6 +33,7 @@ from repro_torch.models import transformer as lm_mod
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]                   # (gen) → params
+    param_struct: Callable[[], Any]            # () → meta-tensor tree
     forward: Callable[..., Any]                # (params, batch, remat=) → (logits, aux)
     init_caches: Callable[..., Any]            # (batch, max_len, device=) → caches
     cache_struct: Callable[..., Any]           # (batch, max_len) → meta caches
@@ -59,6 +61,8 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=functools.partial(encdec_mod.init_encdec, cfg=cfg),
+            param_struct=functools.partial(encdec_mod.encdec_param_struct,
+                                           cfg),
             forward=functools.partial(_encdec_forward, cfg=cfg),
             init_caches=functools.partial(_encdec_caches, cfg=cfg),
             cache_struct=functools.partial(_encdec_cache_struct, cfg=cfg),
@@ -67,6 +71,7 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(lm_mod.init_lm, cfg=cfg),
+        param_struct=functools.partial(lm_mod.lm_param_struct, cfg),
         forward=functools.partial(_lm_forward, cfg=cfg),
         init_caches=functools.partial(_lm_caches, cfg=cfg),
         cache_struct=functools.partial(_lm_cache_struct, cfg=cfg),

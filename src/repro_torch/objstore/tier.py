@@ -42,6 +42,7 @@ from typing import Dict, List, Tuple
 
 from repro_torch.core import manifest as mf
 from repro_torch.core.formats import CHK5CorruptionError, CHK5Reader
+from repro_torch.core.resharding import indexed_shard_files
 from repro_torch.core.tiers import Tier, TierContext
 from repro_torch.objstore import gc as objgc
 from repro_torch.objstore.catalog import Catalog
@@ -220,13 +221,22 @@ class ObjectStoreTier(Tier):
             cache = ChunkCache(os.path.join(self.root, "chunks"))
             mine = [n for n in files
                     if n == container or n.startswith(f"rank{rank}.shard")]
-            for name in mine:
-                dest = os.path.join(d, name)
-                if _cache_matches(dest, files[name]):
-                    continue             # already materialized, verified
-                got = fetch_file_delta(self.store, files[name], dest, cache)
-                self.stats["bytes_fetched"] += got["bytes_fetched"]
-                self.stats["bytes_cached"] += got["bytes_cached"]
+
+            def fetch(names) -> None:
+                for name in names:
+                    dest = os.path.join(d, name)
+                    if _cache_matches(dest, files[name]):
+                        continue         # already materialized, verified
+                    got = fetch_file_delta(self.store, files[name], dest,
+                                           cache)
+                    self.stats["bytes_fetched"] += got["bytes_fetched"]
+                    self.stats["bytes_cached"] += got["bytes_cached"]
+
+            fetch(mine)
+            # other ranks' shard files the container's cross-rank index
+            # names (a multi-process store)
+            fetch(sorted(set(indexed_shard_files(os.path.join(d, container)))
+                         & set(files) - set(mine)))
         except ObjectStoreError:
             return None
         # the manifest rides the catalog entry; materializing it makes the

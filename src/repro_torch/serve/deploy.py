@@ -19,9 +19,11 @@ weight files.  :class:`FleetDeployer` composes three pieces:
   digest-verified (a fine-tune publish ships ~3% of the weight bytes,
   the CI-gated ``serve_swap_delta_ratio``);
 - the **loader** (:func:`repro_torch.core.resharding.load_named_onto`):
-  each leaf is decoded and placed on the device the replica serves it
-  from (the port's stand-in for the reference's serving-mesh
-  shardings; sharded containers are a later part of the port).
+  each leaf lands on the layout the replica serves it with — a
+  ``DTensor`` leaf of the serving mesh as a ``DTensor`` of the same
+  placements, this rank reading only its box of the shard files (a
+  checkpoint trained on a 2×2 mesh installs on a 1×4 serving mesh), any
+  other leaf on its device.
 
 Rolling-swap invariants (the "libraries must become more fault
 tolerant" discipline applied to deployment):
@@ -65,7 +67,12 @@ from repro_torch.core import manifest as mf
 from repro_torch.ft.backoff import backoff_delay
 from repro_torch.core.formats import CHK5CorruptionError, CHK5Reader
 from repro_torch.core.protect import flatten_named, unflatten_named
-from repro_torch.core.resharding import load_named_onto
+from repro_torch.core.resharding import (
+    indexed_shard_files,
+    is_dtensor,
+    load_named_onto,
+    sharding_of,
+)
 from repro_torch.objstore.chunks import ChunkCache, fetch_file_delta
 from repro_torch.objstore.client import ObjectStore, ObjectStoreError
 from repro_torch.objstore.inspect import EntryInfo
@@ -107,11 +114,20 @@ class EntryPuller:
         os.makedirs(d, exist_ok=True)
         stats = {"dir": d, "container": os.path.join(d, container),
                  "bytes_fetched": 0, "bytes_cached": 0, "chunks_corrupt": 0}
-        for f in files:
-            got = fetch_file_delta(self.store, f.file_entry(),
-                                   os.path.join(d, f.name), self.cache)
-            for k in ("bytes_fetched", "bytes_cached", "chunks_corrupt"):
-                stats[k] += got[k]
+
+        def fetch(batch) -> None:
+            for f in batch:
+                got = fetch_file_delta(self.store, f.file_entry(),
+                                       os.path.join(d, f.name), self.cache)
+                for k in ("bytes_fetched", "bytes_cached", "chunks_corrupt"):
+                    stats[k] += got[k]
+
+        fetch(files)
+        # shard files of other ranks the container's index names (the
+        # cross-rank index of a multi-process store)
+        fetched = {f.name for f in files}
+        named = set(indexed_shard_files(stats["container"])) - fetched
+        fetch([f for f in entry.files if f.name in named])
         # the manifest rides the catalog entry; materializing it makes
         # the cache dir a normal committed checkpoint dir
         man_path = os.path.join(d, mf.MANIFEST)
@@ -310,10 +326,14 @@ class FleetDeployer:
 
         cur_named = flatten_named(r.engine.params)
         prefix = (r.prefix + "/") if r.prefix else ""
+        shardings = {prefix + name: sharding_of(leaf)
+                     for name, leaf in cur_named.items() if is_dtensor(leaf)}
         devices = {prefix + name: getattr(leaf, "device", None)
-                   for name, leaf in cur_named.items()}
+                   for name, leaf in cur_named.items()
+                   if not is_dtensor(leaf)}
         named = load_named_onto(pulled["container"], [pulled["dir"]],
-                                rank=r.rank, devices=devices)
+                                rank=r.rank, devices=devices,
+                                shardings=shardings)
         # select this engine's namespace; a missing leaf fails the swap
         # (KeyError → pinned) before any mutation
         new_named = {}

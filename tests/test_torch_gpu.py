@@ -1158,3 +1158,43 @@ def test_whisper_decode_over_cross_kv_on_card_matches_the_cpu():
                  (c_cpu.self_kv.v, c_gpu.self_kv.v)):
         assert float((b.cpu() - a).abs().max()) <= 1e-5
     assert ops.launch_counts()["flashattn"] == 0
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_store_shard_locally_and_restore(tmp_path):
+    """Two processes share the one card (gloo: NCCL refuses two ranks on
+    one GPU): reduced tinyllama on a (1, 2) mesh of ``DTensor`` leaves on
+    the card, FULL + sparse update + DIFF, then two new processes restore
+    onto (2, 1).  The checkpoint path moves host bytes between the ranks
+    (digests and dirty rows); what gloo itself takes on the card is
+    recorded.  Every box equals the source's, the DIFF's dirty blocks are
+    the rows written, and the launches are the design's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import subprocess
+    import sys
+
+    from repro_torch.launch.meshckpt import compare
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    common = ["--reduced", "--device", "cuda", "--block-bytes", "256",
+              "--dir", str(tmp_path / "ck"), "--out", str(tmp_path / "out")]
+    for argv in (["store", "--mesh", "1,2", "--targets", "2,1"],
+                 ["restore", "--mesh", "2,1", "--source-mesh", "1,2"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.meshckpt",
+             *argv, *common],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    src, got = [[json.loads((tmp_path / "out" / f"{n}-rank{r}.json")
+                            .read_text()) for r in range(2)]
+                for n in ("store", "restore-2x1")]
+    for s in src:
+        assert s["dirty_blocks"] == s["expected_dirty"]
+        assert s["launches"] == s["designed_launches"]
+        assert set(s["gloo_cuda"]) == {"all_reduce", "broadcast",
+                                       "all_gather"}
+    assert all(r["restarted"] and r["placements_kept"] for r in got)
+    assert compare(src, got) > 0

@@ -4,7 +4,8 @@ a reduced MoE model's forward and donated step, serving and deploy, a
 reduced MLA model's decode step, served and its state stored, a reduced
 RWKV6 model's decode over its recurrent state, served and its state
 stored, a reduced whisper-small's forward and decode step, a chaos scenario
-cell and an elastic restore) run with jax absent — as
+cell and an elastic restore; a shard-local store from a two-process
+mesh and its restore onto another mesh) run with jax absent — as
 ``chip_smoke.py`` drives them, which also refuses to run without a
 card."""
 import ast
@@ -230,6 +231,39 @@ def test_main_path_runs_without_jax_or_the_reference_package():
     assert "isolated-ok" in out.stdout
 
 
+#: a worker of ``repro_torch.launch.meshckpt`` with jax and the reference
+#: package made unimportable first
+_NO_JAX_WORKER = ("import runpy, sys; sys.modules['jax'] = None; "
+                  "sys.modules['repro'] = None; "
+                  "runpy.run_module('repro_torch.launch.meshckpt', "
+                  "run_name='__main__', alter_sys=True)")
+
+
+def test_mesh_store_and_restore_run_without_jax_in_every_worker(tmp_path):
+    """Two gloo processes store reduced tinyllama from a (1, 2) mesh
+    (shard-local, FULL + DIFF), two new ones restore it onto (2, 1): every
+    worker runs with ``sys.modules["jax"] = None``, and every box equals
+    the source's."""
+    from repro_torch.launch.meshckpt import compare
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    common = ["--reduced", "--device", "cpu", "--block-bytes", "256",
+              "--dir", str(tmp_path / "ck"), "--out", str(tmp_path / "out")]
+    for argv in (["store", "--mesh", "1,2", "--targets", "2,1"],
+                 ["restore", "--mesh", "2,1", "--source-mesh", "1,2"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "--no-python", sys.executable, "-c",
+             _NO_JAX_WORKER, *argv, *common],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    import json
+    load = [[json.loads((tmp_path / "out" / f"{n}-rank{r}.json").read_text())
+             for r in range(2)] for n in ("store", "restore-2x1")]
+    assert all(s["dirty_blocks"] == s["expected_dirty"] for s in load[0])
+    assert all(r["restarted"] and r["placements_kept"] for r in load[1])
+    assert compare(*load) > 0
+
+
 def test_no_module_of_the_port_imports_jax_or_repro():
     """Every import statement in src/repro_torch, lazy ones included."""
     bad = []
@@ -244,7 +278,8 @@ def test_no_module_of_the_port_imports_jax_or_repro():
             "serve/engine.py", "serve/deploy.py", "launch/serve.py",
             "core/resharding.py", "chaos/scenarios.py", "chaos/runner.py",
             "ft/elastic.py", "ft/straggler.py", "tools/chkls.py",
-            "tools/chktrace.py"} <= scanned
+            "tools/chktrace.py", "dist/context.py", "dist/sharding.py",
+            "dist/comm.py", "launch/mesh.py", "launch/meshckpt.py"} <= scanned
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
