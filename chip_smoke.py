@@ -170,10 +170,17 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
 
 13. A multi-process mesh at full width: tinyllama-1.1b's parameters
    (``build_model(get_arch("tinyllama-1.1b")).init``, the stacked tree,
-   4.40 GB in f32, one seed on every rank; no cut) on four processes that
-   share the one card (``torch.distributed.run``; gloo, since NCCL
-   refuses two ranks on one GPU), placed on a (data 2, model 2) mesh by
-   the sharding rules as ``DTensor`` leaves.  FTI on the CP-dedicated
+   4.40 GB in f32, phase 5's seed on every rank; no cut) on four
+   processes that share the one card (``torch.distributed.run``; gloo,
+   since NCCL refuses two ranks on one GPU), placed on a (data 2, model 2)
+   mesh by the sharding rules as ``DTensor`` leaves of a ``TrainState``
+   laid out by the dry-run's ZeRO-1 shardings, and trained two steps on
+   phase 5's batches (4 × 2048 on data, bf16, remat, flash on each rank's
+   16 query heads over 2 KV heads, deterministic): each step's loss and
+   global gradient norm must equal phase 5's first two within 1e-4 and
+   1e-2 relative, and each rank must launch flash 2 × 22 times a step.
+   The trained parameters, as they lie, go on to the store.  FTI on the
+   CP-dedicated
    thread stores a FULL (each box written once, by the lowest rank that
    holds it, into its own shard files; every rank's container indexes
    every owner's chunks), phase 3's sparse update is applied to the
@@ -186,7 +193,21 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    boxes and no sharded leaf may pass the host gather, and the launches
    must be the design's (``blockhash2`` per store and leaf part hashed,
    ``diffpack`` per DIFF store and group of rows on each rank, none on
-   the restores, which replay on the host).
+   the restores, which replay on the host).  The two restored ranks of
+   (2, 1) then decode: a batched prefill of 1,536 seeded tokens and 8
+   steps fed seeded tokens over a 2,048-slot cache sequence-sharded over
+   data (1,024 slots a rank), held to the same decode over a plain cache
+   on each rank, in bf16 and in f32 compute (cache included): the greedy
+   tokens equal at every step whose plain top-two margin exceeds two
+   spacings of the dtype's values at the top logit; in f32 the logits
+   within the reference's ``rtol=5e-2, atol=2e-2``; in bf16 each step's
+   KL divergence of the sharded softmax from the plain one at most 4
+   times the plain bf16 softmax's own from the plain f32 one, plus 1e-3
+   nats (bf16 rounds this model's logits past the reference's bound on
+   one device too), while the plain decode after another prompt must
+   pass that bound at some step (the bound sees a changed context);
+   one sharded step's collectives must be all-reduces and none an
+   all-gather of a cache leaf.
 
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
@@ -1334,7 +1355,7 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
             sync(torch, device)
             steps.append((run, int(new.step), time.time() - t0,
                           fa.LAUNCHES.n - n0, float(met["loss"]),
-                          float(met["aux"])))
+                          float(met["aux"]), float(met["grad_norm"])))
             return new, met
         return step
 
@@ -1472,10 +1493,11 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
         f"{r.bytes_payload} B into a template on {device} that holds no "
         f"device memory)")
 
-    for run, step, sec, n, loss, aux in steps:
+    for run, step, sec, n, loss, aux, gnorm in steps:
         log(f"[{tag}] run {run} step {step}: {sec:.3f} s, "
             f"{batch * seq / sec:.0f} tokens/s, flash launches {n}, "
-            f"loss {loss:.6f}" + (f" (router aux {aux:.6f})" if m else ""))
+            f"loss {loss:.6f}, grad norm {gnorm:.6f}"
+            + (f" (router aux {aux:.6f})" if m else ""))
     # forward + remat recompute, per layer: one attention, or three for an
     # encoder-decoder's layer pair (encoder self, decoder self, cross)
     want_per_step = 2 * cfg.n_layers * (3 if cfg.encdec else 1)
@@ -2569,15 +2591,38 @@ def world_spans(t0: float, t_end: float, results: list) -> str:
             f"{done - joined:.1f} s, exit {t_end - done:.1f} s")
 
 
-def mesh_path(torch, args, device, ops) -> dict:
+#: phase 13's hold of the sharded train steps to phase 5's (relative):
+#: the same bf16 step, its products split over two model ranks and its
+#: batch over two data ranks, sums in another order (read at 9.1e-6 and
+#: 2.6e-3; phase 5's step 2 differs from its step 1 by 7.5e-4 in loss and
+#: 1.1e-1 in gradient norm, so a step whose update was lost shows)
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-4, 1e-2
+#: phase 13's sequence-sharded decode: prompt, cache slots, steps
+MESH_PROMPT, MESH_SLOTS, MESH_DECODE_STEPS = 1536, 2048, 8
+#: its bf16 hold: each step's KL(plain ‖ sharded) of the two softmaxes at
+#: most this many times bf16's own (the plain bf16 softmax's from the
+#: plain f32 one) plus the floor, in nats: two bf16 runs as accurate as
+#: each other sit about twice bf16's own apart (read at ≤ 1.8 times)
+MESH_DECODE_KL_OWN, MESH_DECODE_KL_FLOOR = 4.0, 1e-3
+#: the plain top-two margin, in spacings of the dtype's values at the top
+#: logit, at or under which a step is a near-tie
+MESH_NEAR_TIE_ULPS = 2
+
+
+def mesh_path(torch, args, device, ops, reference=None) -> dict:
     """Phase 13.  tinyllama-1.1b's parameters (``build_model(...).init``,
-    one seed on every rank; the stacked tree, 4.40 GB in f32 at full
-    width) on four processes of one card: a (2, 2) mesh, FULL + sparse
-    update + DIFF through FTI's CP-dedicated thread, every worker exits;
+    phase 5's seed on every rank; the stacked tree, 4.40 GB in f32 at full
+    width) on four processes of one card: a (2, 2) mesh, two sharded
+    train steps held to ``reference`` (phase 5's first two steps: losses
+    and gradient norms), FULL + sparse update + DIFF of the trained
+    parameters through FTI's CP-dedicated thread, every worker exits;
     four new workers restore onto (1, 4), two onto (2, 1), into zero
     ``DTensor`` templates, every rank's box bit-exact (SHA-256 per box
-    against the source's, hashed before the fault).  → {"launches": summed
-    over every rank and world, "by_rank": per world and rank}"""
+    against the source's, hashed before the fault); the (2, 1) ranks then
+    decode over a sequence-sharded cache, held to a plain one.  → {
+    "launches": summed over every rank and world, training included,
+    "by_rank": per world and rank, "train": rank 0's steps, "decode": rank
+    0's decode}"""
     from repro_torch.core.formats import CHK5Reader
     from repro_torch.launch.meshckpt import compare
 
@@ -2585,10 +2630,21 @@ def mesh_path(torch, args, device, ops) -> dict:
     ck, out = str(MESH_DIR / "ck"), str(MESH_DIR / "out")
     common = ["--device", device.type, "--arch", MESH_ARCH, "--dir", ck,
               "--out", out, "--seed", str(SEED + 21)]
+    train = ["--train-steps", "2", "--train-seed", str(SEED),
+             "--total-steps", str(TRAIN_STEPS)]
+    decode = ["--decode-steps", str(MESH_DECODE_STEPS)]
     if device.type == "cpu":
         common += ["--reduced", "--block-bytes", str(args.block_bytes)]
+        train += ["--train-batch", "2", "--train-seq", "64"]
+        decode += ["--decode-prompt", "40", "--decode-slots", "64"]
+    else:
+        train += ["--train-batch", str(TRAIN_BATCH),
+                  "--train-seq", str(TRAIN_SEQ)]
+        decode += ["--decode-prompt", str(MESH_PROMPT),
+                   "--decode-slots", str(MESH_SLOTS)]
     t = run_world(4, ["store", "--mesh", MESH_A, "--targets",
-                      f"{MESH_B};{MESH_C}", *common], MESH_WORLD_TIMEOUT)
+                      f"{MESH_B};{MESH_C}", *common, *train],
+                  MESH_WORLD_TIMEOUT)
     store_s = time.time() - t
 
     def load(name: str) -> list:
@@ -2600,6 +2656,7 @@ def mesh_path(torch, args, device, ops) -> dict:
     if len(src) != 4:
         fail(f"phase 13: {len(src)} of 4 store workers reported")
     log(f"[mesh] store world: {world_spans(t, t + store_s, src)}")
+    check_mesh_training(src, device, reference)
     for r in src:
         tag = f"[mesh] store rank {r['rank']}"
         for st in r["stores"]:
@@ -2646,7 +2703,9 @@ def mesh_path(torch, args, device, ops) -> dict:
     restored = {}
     for mesh, n in ((MESH_B, 4), (MESH_C, 2)):
         t = run_world(n, ["restore", "--mesh", mesh, "--source-mesh",
-                          MESH_A, *common], MESH_WORLD_TIMEOUT)
+                          MESH_A, *common,
+                          *(decode if mesh == MESH_C else [])],
+                      MESH_WORLD_TIMEOUT)
         wall = time.time() - t
         name = "restore-" + mesh.replace(",", "x")
         got = load(name)
@@ -2674,13 +2733,132 @@ def mesh_path(torch, args, device, ops) -> dict:
                                    or c["diffpack"] for c in counts):
             fail(f"phase 13: {name} launched {counts}: the restore reads "
                  "and replays on the host")
+    got = load("restore-" + MESH_C.replace(",", "x"))
+    check_mesh_decode(got, device)
+    by_rank["train"] = [{"blockhash2": 0, "diffpack": 0, "diffunpack": 0,
+                         "flashattn": sum(st["flash"] for st in
+                                          r["train"]["steps"])}
+                        for r in src]
     total = {k: sum(c[k] for cs in by_rank.values() for c in cs)
              for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
-    log(f"[mesh] a 4-process (2, 2) store restored bit-exact onto (1, 4) "
-        f"on 4 processes and (2, 1) on 2 on {device.type}; store world "
-        f"{store_s:.1f} s")
+    log(f"[mesh] a 4-process (2, 2) store of two sharded train steps' "
+        f"parameters restored bit-exact onto (1, 4) on 4 processes and "
+        f"(2, 1) on 2 on {device.type}; store world {store_s:.1f} s")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return {"launches": total, "by_rank": by_rank}
+
+
+def check_mesh_training(src: list, device, reference) -> None:
+    """Phase 13's train steps on every rank: each step's loss and global
+    gradient norm equal on every rank and within MESH_*_RTOL of phase 5's
+    (``reference``: [(loss, grad norm)] of its first steps, on the card);
+    flash launched 2 × layers a step on each rank."""
+    for r in src:
+        tr = r["train"]
+        tag = f"[mesh] train rank {r['rank']}"
+        for st in tr["steps"]:
+            log(f"{tag} step {st['step']}: {st['s']:.3f} s, flash "
+                f"{st['flash']}, loss {st['loss']:.6f}, grad norm "
+                f"{st['grad_norm']:.6f}")
+        log(f"{tag}: last step's collectives {tr['collectives_last_step']}"
+            f"; peak device {tr.get('peak_bytes', 0) / 1e9:.2f} GB")
+        if device.type == "cuda" and any(
+                st["flash"] != tr["designed_flash_per_step"]
+                for st in tr["steps"]):
+            fail(f"phase 13: rank {r['rank']} launched flash "
+                 f"{[st['flash'] for st in tr['steps']]} a step, the design "
+                 f"says {tr['designed_flash_per_step']}")
+        mine = [(st["loss"], st["grad_norm"]) for st in tr["steps"]]
+        theirs = [(st["loss"], st["grad_norm"])
+                  for st in src[0]["train"]["steps"]]
+        if mine != theirs:
+            fail(f"phase 13: rank {r['rank']}'s steps {mine} differ from "
+                 f"rank 0's {theirs}")
+        if not all(math.isfinite(x) for pair in mine for x in pair):
+            fail(f"phase 13: rank {r['rank']}'s steps are not finite: {mine}")
+    if reference is None:
+        return
+    for (loss, gnorm), (want_l, want_g) in zip(mine, reference):
+        dl, dg = abs(loss / want_l - 1), abs(gnorm / want_g - 1)
+        log(f"[mesh] sharded step vs phase 5: loss {loss:.6f} / {want_l:.6f}"
+            f" ({dl:.2e} relative), grad norm {gnorm:.6f} / {want_g:.6f} "
+            f"({dg:.2e})")
+        if dl > MESH_LOSS_RTOL or dg > MESH_GNORM_RTOL:
+            fail(f"phase 13: sharded step ({loss}, {gnorm}) vs phase 5's "
+                 f"({want_l}, {want_g}) past {MESH_LOSS_RTOL} / "
+                 f"{MESH_GNORM_RTOL} relative")
+
+
+def check_mesh_decode(got: list, device) -> None:
+    """Phase 13's sequence-sharded decode on every (2, 1) rank, in f32 and
+    in bf16 compute (cache included), both runs fed the same seeded
+    tokens: the greedy tokens equal at every step whose plain top-two
+    margin exceeds MESH_NEAR_TIE_ULPS spacings of the dtype's values at
+    the top logit; in f32 every step's logits within the reference's
+    tolerance of the plain decode's; in bf16 every step's KL divergence of
+    the sharded softmax from the plain one within MESH_DECODE_KL_OWN times
+    ``kl_own``, the plain bf16 run's divergence from the plain f32 one,
+    plus MESH_DECODE_KL_FLOOR (the reference's elementwise bound does not
+    hold bf16 on one device either), and on the card the plain decode's
+    after another prompt (``kl_context``) past that bound at some step,
+    or the bound could not see a changed context (at the CPU rehearsal's
+    reduced size the logits are too peaked for that); all-reduces and no
+    gather of a cache leaf."""
+    for g in got:
+        for dt, dec in g["decode"].items():
+            tag = f"[mesh] decode {dt} rank {g['rank']}"
+            ties = [i for i, (m, u) in enumerate(zip(dec["margin"],
+                                                     dec["top_ulp"]))
+                    if m <= MESH_NEAR_TIE_ULPS * u]
+            flips = [i for i, (a, b) in enumerate(zip(dec["tokens_sharded"],
+                                                      dec["tokens_plain"]))
+                     if a != b and i not in ties]
+            bound = [MESH_DECODE_KL_OWN * k + MESH_DECODE_KL_FLOOR
+                     for k in dec.get("kl_own", ())]
+            log(f"{tag}: cache {dec['cache_dtype']} "
+                f"{dec['cache_placements']}; prefill "
+                f"{dec['prefill_s_sharded']:.3f} s sharded, "
+                f"{dec['prefill_s_plain']:.3f} s plain; steps "
+                f"{[round(x * 1e3, 2) for x in dec['step_s_sharded']]} ms "
+                f"sharded, "
+                f"{[round(x * 1e3, 2) for x in dec['step_s_plain']]} ms "
+                f"plain; logits max |diff| {dec['max_abs_diff']} (row max "
+                f"|logit| {dec['row_max']}; within the reference's "
+                f"tolerance: {dec['close']}); KL(plain ‖ sharded) "
+                f"{[f'{x:.3e}' for x in dec['kl']]} nats, KL(plain ‖ "
+                f"another prompt) {[f'{x:.3e}' for x in dec['kl_context']]}"
+                + (f" (plain bf16 from plain f32: "
+                   f"{[f'{x:.3e}' for x in dec['kl_own']]}; bound "
+                   f"{[f'{x:.3e}' for x in bound]})" if bound else "")
+                + f"; plain top-two margin {dec['margin']}, near-ties "
+                f"(≤ {MESH_NEAR_TIE_ULPS} spacings of "
+                f"{dec['top_ulp']}) at steps {ties}; tokens "
+                f"{dec['tokens_sharded']} sharded, {dec['tokens_plain']} "
+                f"plain; one step's collectives {dec['collectives']}")
+            if flips:
+                fail(f"phase 13: rank {g['rank']}'s {dt} sequence-sharded "
+                     f"decode chose tokens {dec['tokens_sharded']}, the "
+                     f"plain one {dec['tokens_plain']}: they differ at "
+                     f"steps {flips}, none a near-tie")
+            if dt == "float32" and not dec["close"]:
+                fail(f"phase 13: rank {g['rank']}'s f32 sequence-sharded "
+                     f"decode's logits differ from the plain one's by "
+                     f"{dec['max_abs_diff']}, past the reference's bound")
+            if bound and any(k > b for k, b in zip(dec["kl"], bound)):
+                fail(f"phase 13: rank {g['rank']}'s {dt} sequence-sharded "
+                     f"decode's softmax diverges from the plain one's by "
+                     f"{dec['kl']} nats, past {bound}")
+            if bound and device.type == "cuda" and all(
+                    k <= b for k, b in zip(dec["kl_context"], bound)):
+                fail(f"phase 13: rank {g['rank']}'s {dt} decode after "
+                     f"another prompt diverges by {dec['kl_context']} nats, "
+                     f"within {bound}: the bound cannot see the context")
+            if not dec["collectives"].get("all-reduce") or \
+                    dec["cache_gathers"]:
+                fail(f"phase 13: rank {g['rank']}'s sharded step ran "
+                     f"{dec['collectives']}, gathers of a cache leaf "
+                     f"{dec['cache_gathers']}: the combine must be "
+                     "all-reduces")
 
 
 def main() -> None:
@@ -2810,8 +2988,10 @@ def main() -> None:
     log(f"[phase] checkpointed encoder-decoder training: "
         f"{time.time() - t:.1f} s")
     t = time.time()
-    mesh = mesh_path(torch, args, device, ops)
-    log(f"[phase] 4-process mesh store, restores onto (1, 4) and (2, 1): "
+    mesh = mesh_path(torch, args, device, ops, reference=[
+        (x[4], x[6]) for x in train["steps"] if x[0] == "A"][:2])
+    log(f"[phase] 4-process mesh: two sharded train steps, store, restores "
+        f"onto (1, 4) and (2, 1), sequence-sharded decode: "
         f"{time.time() - t:.1f} s")
     log(f"[phase] all phases, the build included: "
         f"{time.time() - t_start:.1f} s")

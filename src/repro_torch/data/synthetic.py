@@ -31,6 +31,12 @@ def init_data_state(seed: int = 0) -> DataState:
                      torch.zeros((), dtype=torch.int32))
 
 
+def data_state_struct() -> DataState:
+    """The cursor's shapes and dtypes as ``meta`` tensors (dry-run)."""
+    return DataState(torch.empty((), dtype=torch.uint32, device="meta"),
+                     torch.empty((), dtype=torch.int32, device="meta"))
+
+
 def next_batch(
     state: DataState,
     cfg: ArchConfig,

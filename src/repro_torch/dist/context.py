@@ -29,6 +29,14 @@ The hint layer is deliberately no-op-safe: model code calls
 single-device serving) or with hints disabled (``constraint_hints(False)``
 — the dp-only ablation) the input is returned unchanged.
 
+Sharded execution: the models run on ``DTensor`` parameters, batches and
+caches as on plain tensors.  :func:`sharded_scope` (entered by the
+forwards, decode steps and the train step when a leaf is a ``DTensor``)
+lets the plain constants a layer makes (rope tables, masks, ``arange``)
+meet ``DTensor`` operands as replicated values, and
+:func:`bounded_placements` gives the layout a per-(batch, head) local
+computation (``local_map``) runs in.
+
 Every resolution is divisibility-aware: an axis is kept only when the dim
 it shards divides evenly by the axis size; dims that do not divide degrade
 to replicated, and a spec whose every requested axis dissolved resolves to
@@ -37,6 +45,7 @@ to replicated, and a spec whose every requested axis dissolved resolves to
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -303,6 +312,136 @@ def resolve_spec(mesh: Any, axes: Sequence[Any],
     if kept == 0:
         return None
     return P(*dims)
+
+
+# --------------------------------------------------------------------------- #
+# DTensor execution helpers
+# --------------------------------------------------------------------------- #
+
+
+def is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def any_dtensor(tree: Any) -> bool:
+    """True if a leaf of the nested dicts, lists and tuples is a
+    ``DTensor``."""
+    if isinstance(tree, dict):
+        return any(any_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(any_dtensor(v) for v in tree)
+    return is_dtensor(tree)
+
+
+@contextlib.contextmanager
+def sharded_scope(*trees: Any):
+    """Where a leaf of ``trees`` is a ``DTensor``: plain tensors that meet
+    ``DTensor`` operands count as replicated on their mesh (the constants
+    a layer builds: rope angles, masks, ``arange``).  Otherwise a no-op."""
+    from torch.distributed.tensor import DTensor
+    # implicit_replication() switches the flag off when it exits, nested
+    # or not: enter it only where no scope is open yet
+    if (any(any_dtensor(t) for t in trees)
+            and not DTensor._op_dispatcher._allow_implicit_replication):
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            yield
+    else:
+        yield
+
+
+def bounded_placements(x: Any, free_dims: Sequence[int]) -> tuple:
+    """``x``'s placements with every ``Partial`` and every shard of a dim
+    outside ``free_dims`` made ``Replicate``: the layout a computation
+    that is independent along ``free_dims`` runs in, locally."""
+    from torch.distributed.tensor import Replicate, Shard
+    nd = x.ndim
+    return tuple(pl if isinstance(pl, Shard) and type(pl) is Shard
+                 and pl.dim % nd in free_dims else Replicate()
+                 for pl in x.placements)
+
+
+def to_placements(x: Any, placements: Sequence[Any]) -> Any:
+    """``x`` redistributed to ``placements`` (the same object when it
+    already lies so)."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def mesh_dims_sharding(x: Any, dim: int) -> List[int]:
+    """The mesh dims along which ``x``'s tensor dim ``dim`` is sharded,
+    outermost first."""
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim % x.ndim == dim % x.ndim]
+
+
+def local_range(x: Any, dim: int) -> Tuple[int, int]:
+    """``[lo, hi)``: the global indices of tensor dim ``dim`` this rank's
+    shard of ``x`` holds (``torch.chunk``'s split, major mesh dim
+    first)."""
+    coord = x.device_mesh.get_coordinate()
+    lo, hi = 0, int(x.shape[dim])
+    for i in mesh_dims_sharding(x, dim):
+        k = x.device_mesh.size(i)
+        step = -(-(hi - lo) // k)
+        lo, hi = min(lo + coord[i] * step, hi), min(lo + (coord[i] + 1) * step,
+                                                   hi)
+    return lo, hi
+
+
+def gather_data_shards(tree: Any) -> Any:
+    """FSDP's weight gather: each ``DTensor`` leaf's shards along the data
+    axes (along every axis when hints are off: the dp-only layout) are
+    all-gathered, its tensor-parallel shards kept; the backward of the
+    gather is the gradient's reduce-scatter.  A tree with no data-sharded
+    leaf comes back unchanged."""
+    from torch.distributed.tensor import Replicate
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(one(v) for v in x) if not hasattr(x, "_fields") \
+                else type(x)(*(one(v) for v in x))
+        if not is_dtensor(x):
+            return x
+        names = x.device_mesh.mesh_dim_names or ()
+        keep = {i for i, n in enumerate(names) if n == MODEL} \
+            if _st().hints else set()
+        return to_placements(x, [q if i in keep else Replicate()
+                                 for i, q in enumerate(x.placements)])
+    return one(tree)
+
+
+def resolve_partial(y: Any) -> Any:
+    """A block's output before it joins the residual stream: a ``DTensor``
+    keeps its batch shards and has its partial sums (a row-parallel
+    product's) all-reduced, so the stream stays replicated over MODEL, as
+    GSPMD lays it out.  Left to DTensor, ``h + y`` reduce-scatters ``y``
+    over MODEL instead, and the next column-parallel product then gathers
+    its weight.  A plain tensor is returned as it is."""
+    if not is_dtensor(y):
+        return y
+    return to_placements(y, bounded_placements(y, (0,)))
+
+
+def split_last(x: Any, *shape: int) -> Any:
+    """``x.reshape(*shape)`` where ``shape`` splits ``x``'s last dim into
+    (heads, head_dim): a ``DTensor`` whose last dim is sharded across a
+    head (the heads do not divide by the shard count) is first replicated
+    along it, which GSPMD would do by itself."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        dims = mesh_dims_sharding(x, x.ndim - 1)
+        if dims and shape[-2] % math.prod(x.device_mesh.size(i)
+                                          for i in dims):
+            x = to_placements(x, [Replicate() if i in dims else q
+                                  for i, q in enumerate(x.placements)])
+    return x.reshape(*shape)
 
 
 # --------------------------------------------------------------------------- #

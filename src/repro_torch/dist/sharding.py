@@ -25,9 +25,17 @@ The rules read only shapes: the leaves may be tensors on any device,
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from repro_torch.core.protect import Protect, _children, _key_str, _path_str
+from repro_torch.core.protect import (
+    Protect,
+    _children,
+    _key_str,
+    _path_str,
+    flatten_named,
+    unflatten_named,
+)
 from repro_torch.dist.context import (
     MODEL,
     NamedSharding,
@@ -184,3 +192,58 @@ def cache_shardings(mesh: Any, caches: Any, global_batch: int, *,
         return NamedSharding(mesh, P(*dims))
 
     return map_with_path(one, caches)
+
+
+def train_state_shardings(mesh: Any, state_struct: Any, zero1: bool,
+                          fsdp: bool, dp_only: bool = False) -> Any:
+    """``TrainState`` shardings: params per rules (+FSDP), moments
+    (+ZeRO-1).  ``state_struct`` is a ``TrainState`` of shapes
+    (``train.state.train_state_struct``).
+
+    ``dp_only``: treat the model axis as extra data parallelism — params
+    replicated (or FSDP-sharded) over ALL axes, no tensor parallelism.
+    """
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.state import TrainState
+
+    if dp_only:
+        pshard = map_with_path(lambda _p, _x: NamedSharding(mesh, P()),
+                               state_struct.params)
+    else:
+        pshard = param_shardings(mesh, state_struct.params)
+    dax = data_axes(mesh) + ((MODEL,) if dp_only else ())
+    sizes = axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in dax)
+    daxis = dax if len(dax) > 1 else dax[0]
+    leaves = flatten_named(state_struct.params)
+
+    def augment(tree):
+        """Add the data axes to the first unsharded divisible dim."""
+        def one(path, sharding):
+            shape = tuple(leaves[path].shape)
+            spec = list(sharding.spec) + [None] * (len(shape)
+                                                   - len(sharding.spec))
+            for i, (s, dim) in enumerate(zip(spec, shape)):
+                if s is None and dim % dp == 0 and dim >= dp:
+                    spec[i] = daxis
+                    return NamedSharding(mesh, P(*spec))
+            return sharding
+        named = flatten_named(tree)
+        return unflatten_named({p: one(p, s) for p, s in named.items()},
+                               tree)
+
+    mshard = pshard
+    if zero1:
+        mshard = augment(pshard)
+    if fsdp:
+        pshard = augment(pshard)
+
+    scalar = NamedSharding(mesh, P())
+    return TrainState(
+        step=scalar,
+        params=pshard,
+        opt=AdamWState(count=scalar, mu=mshard, nu=mshard),
+        rng=scalar,
+        data_state=map_with_path(lambda _p, _x: scalar,
+                                 state_struct.data_state),
+    )

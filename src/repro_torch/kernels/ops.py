@@ -215,16 +215,30 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, bq: int, bk: int) -> torch.Tensor:
+    """The flash forward as an operator of its own: the Hopper kernel on a
+    CUDA tensor, the plain version on the CPU, and a shape-only fake
+    implementation under a fake-tensor trace (the dry-run), so a trace
+    never runs the plain version in the kernel's place."""
+    if q.is_cuda:
+        return fa.flash_attention_gqa(q, k, v, causal=causal, bq=bq, bk=bk)
+    _check_device(q)
+    fa.check_shapes_gqa(q, k, v, bq, bk)
+    return ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+
+
+@_flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, bq, bk):
+    fa.check_shapes_gqa(q, k, v, bq, bk)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 class _FlashAttentionGQA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, bq, bk):
-        if q.is_cuda:
-            out = fa.flash_attention_gqa(q, k, v, causal=causal, bq=bq,
-                                         bk=bk)
-        else:
-            _check_device(q)
-            fa.check_shapes_gqa(q, k, v, bq, bk)
-            out = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+        out = _flash_attention_fwd(q, k, v, causal, bq, bk)
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
         return out
@@ -250,7 +264,12 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, S, H, dh) q, (B, Sk, KV, dh) k and v → (B, S, H, dh) in q's
     dtype, with a gradient; query head h reads KV head h // (H/KV).  On the
     card the kernel reads k and v in place; the plain version repeats
-    them."""
+    them.  It takes local tensors only: a ``DTensor`` goes through
+    ``local_map`` first (``models/attention.py``)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention_gqa takes local tensors; run it "
+                        "on each rank's shard (local_map)")
     return _FlashAttentionGQA.apply(q, k, v, causal, bq, bk)
 
 

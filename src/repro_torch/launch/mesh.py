@@ -59,6 +59,39 @@ def make_host_mesh(device_type: str = "cpu"):
     return make_mesh((1, 1), ("data", "model"), device_type)
 
 
+#: the override below, kept alive with the process
+_GLOO_CUDA_LIB = None
+
+
+def gloo_cuda_all_gather() -> None:
+    """Route the functional all-gather of tensors on the card through
+    ``dist.all_gather_into_tensor``.  On a gloo world the functional op
+    (``_c10d_functional::all_gather_into_tensor``, which DTensor's
+    Shard → Replicate redistributions call) crashes the process with a
+    segmentation fault on CUDA tensors (torch 2.11), while the
+    ``torch.distributed`` call, the same all-gather, works; the other
+    functional collectives DTensor uses (all-reduce, reduce-scatter) work
+    as they are.  The gather is synchronous, so the op's ``wait_tensor``
+    finds nothing to wait for."""
+    global _GLOO_CUDA_LIB
+    if _GLOO_CUDA_LIB is not None:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    import warnings
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # "overriding a kernel"
+        lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _GLOO_CUDA_LIB = lib
+
+
 def join(rank: int, world: int, init_method: str, *,
          device_type: str = "cpu", local_rank: int = 0,
          timeout_s: float = JOIN_TIMEOUT_S) -> torch.device:
@@ -72,6 +105,8 @@ def join(rank: int, world: int, init_method: str, *,
     dist.init_process_group(
         "gloo", init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
+    if device_type == "cuda":
+        gloo_cuda_all_gather()
     return device
 
 

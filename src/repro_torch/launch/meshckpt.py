@@ -9,14 +9,20 @@ torch.distributed.run`` starts on every rank.
         --dir D --out O
 
 ``store`` draws the model's parameters from one seed on every rank,
-places them on the mesh by the sharding rules (each rank keeps its box),
-stores a FULL checkpoint (id 1), updates the global tree in place (each
+places them on the mesh by the sharding rules (each rank keeps its box)
+— with ``--train-steps N``, as the parameters of a ``TrainState`` laid
+out by the ZeRO-1 shardings, which N sharded train steps update
+(bf16, remat, flash on each rank's local heads, deterministic) — stores
+a FULL checkpoint (id 1), updates the global tree in place (each
 rank its own part: ``--update sparse`` writes rows of ``embed``, columns
 of ``lm_head`` and every norm scale for seeded token ids; ``embed00``
 sets ``embed[0, 0] = -3``), stores a DIFF (id 2; a FULL on backends with
 no checkpoint kinds), and exits.  ``restore`` restores the newest
 checkpoint into zero ``DTensor`` templates of its own mesh, each rank
-allocating and reading only its box.
+allocating and reading only its box; with ``--decode-steps N`` it then
+decodes from the restored parameters twice — over a cache sharded along
+its sequence over the data axis, and over a plain cache on each rank —
+after a batched prefill, and holds the first to the second.
 
 Each rank writes ``<out>/<command>-rank<r>.json``: store reports, bytes
 written and exchanged, kernel launches, peak device memory, and SHA-256
@@ -29,8 +35,10 @@ array.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
+import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -48,7 +56,7 @@ from repro_torch.core.context import (
 )
 from repro_torch.core.diff import MAX_PACK_BYTES, shard_part
 from repro_torch.core.formats import CHK5Reader, as_numpy
-from repro_torch.core.protect import flatten_named
+from repro_torch.core.protect import flatten_named, unflatten_named
 from repro_torch.core.resharding import (
     box_owners,
     mesh_boxes,
@@ -233,7 +241,8 @@ def designed_launches(named: Dict[str, Any], deltas: Dict[str, np.ndarray],
 
 def gloo_cuda_collectives(device: torch.device) -> Dict[str, str]:
     """Which gloo collectives take a tensor on the card: name → "ok" or
-    the error (on a group of their own)."""
+    the error (on a group of their own).  DTensor's redistributions use
+    the last three."""
     import torch.distributed as dist
     group = dist.new_group(backend="gloo")
     t = torch.ones(4, device=device)
@@ -243,6 +252,14 @@ def gloo_cuda_collectives(device: torch.device) -> Dict[str, str]:
         "broadcast": lambda: dist.broadcast(t, 0, group=group),
         "all_gather": lambda: dist.all_gather(
             [torch.empty_like(t) for _ in range(world)], t, group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=device), t, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(1, device=device),
+            torch.ones(world, device=device), group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(world, device=device),
+            torch.ones(world, device=device), group=group),
     }
     out = {}
     for name, call in calls.items():
@@ -284,12 +301,17 @@ def store(args, device: torch.device) -> Dict[str, Any]:
     struct = flatten_named(meta)
     mesh = make_mesh(_shape(args.mesh), AXES, device.type)
     t = time.time()
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
-    params = reshard_tree(params, param_shardings(mesh, meta))
+    seed = args.train_seed if args.train_steps else args.seed
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    out: Dict[str, Any] = {"rank": rank}
+    if args.train_steps:
+        params, out["train"] = train(args, model, mesh, params, device)
+    else:
+        params = reshard_tree(params, param_shardings(mesh, meta))
     if device.type == "cuda":
         torch.cuda.empty_cache()
     _sync(device)
-    out: Dict[str, Any] = {"rank": rank, "init_s": time.time() - t}
+    out["init_s"] = time.time() - t
     if device.type == "cuda":
         out["gloo_cuda"] = gloo_cuda_collectives(device)
     comm = ProcessGroupComm(os.path.join(args.dir, "nodes"))
@@ -357,6 +379,244 @@ def store(args, device: torch.device) -> Dict[str, Any]:
     return out
 
 
+def train(args, model, mesh, params, device) -> Tuple[Any, Dict[str, Any]]:
+    """``args.train_steps`` sharded train steps from ``params`` (the global
+    values, the same on every rank): a ``TrainState`` laid out by
+    ``train_state_shardings(zero1=True)`` (parameters by the rules,
+    moments also sharded over data), the batches of ``next_batch`` from
+    ``args.train_seed`` on the data axis → (the trained parameter
+    ``DTensor``s, a report: per step the loss, the global gradient norm,
+    seconds, flash launches, and the last step's collectives)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data.synthetic import (data_state_struct,
+                                            init_data_state, next_batch)
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import (batch_sharding,
+                                           train_state_shardings)
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.state import (init_sharded_train_state, prng_key,
+                                         train_state_struct)
+    from repro_torch.train.step import (make_train_step,
+                                        use_deterministic_algorithms)
+
+    os.environ["REPRO_ATTN_IMPL"] = "flash"
+    if device.type == "cuda":
+        use_deterministic_algorithms()
+    cfg = model.cfg
+    struct = train_state_struct(model.param_struct(), data_state_struct())
+    sh = train_state_shardings(mesh, struct, zero1=True, fsdp=False)
+    state = init_sharded_train_state(params, sh,
+                                     prng_key(args.train_seed + 1),
+                                     init_data_state(args.train_seed))
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    step_fn = make_train_step(model, AdamWConfig(
+        total_steps=args.total_steps, warmup_steps=1), remat=True)
+    steps = []
+    comm = {}
+    with use_mesh(mesh):
+        for i in range(args.train_steps):
+            batch, next_ds = next_batch(state.data_state, cfg,
+                                        args.train_batch, args.train_seq,
+                                        device)
+            batch = reshard_tree(batch, {k: batch_sharding(mesh, v.ndim)
+                                         for k, v in batch.items()})
+            last = i == args.train_steps - 1
+            debug = CommDebugMode() if last else contextlib.nullcontext()
+            _sync(device)
+            n0, t0 = fa.LAUNCHES.n, time.time()
+            with debug:
+                state, met = step_fn(state, batch)
+            _sync(device)
+            steps.append({"step": int(state.step), "s": time.time() - t0,
+                          "flash": fa.LAUNCHES.n - n0,
+                          "loss": float(met["loss"]),
+                          "grad_norm": float(met["grad_norm"])})
+            state = state._replace(data_state=next_ds)
+            if last:
+                comm = {str(k): v for k, v in debug.get_comm_counts().items()}
+    placements = {p: [repr(q) for q in x.placements] for p, x in
+                  flatten_named(state.opt.mu).items()}
+    report = {"steps": steps, "collectives_last_step": comm,
+              "mu_placements": placements,
+              "designed_flash_per_step": 2 * cfg.n_layers}
+    if device.type == "cuda":
+        report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        torch.use_deterministic_algorithms(False)
+    return state.params, report
+
+
+def seq_decode(args, model, params, mesh, device) -> Dict[str, Any]:
+    """Decode from the restored ``params`` (replicated over data) on this
+    rank, in each compute dtype of ``DECODE_DTYPES``: over a cache of
+    ``args.decode_slots`` sequence-sharded on the data axis
+    (``cache_shardings(seq_axis_sharded=True)``) and over a plain cache,
+    each after a batched prefill of ``args.decode_prompt`` seeded tokens
+    (batch 1), then ``args.decode_steps`` steps fed the same seeded tokens
+    (not the greedy ones: the store's sparse update lifts 1,024 rows of
+    ``embed`` and columns of ``lm_head`` by 0.5, so a greedy run feeds
+    itself those tokens, whose logits of ~550 tie in bf16), so each step's
+    logits of every run come from the same context.  → per dtype the
+    report of :func:`_decode_both`; the bf16 one also holds
+    ``kl_own``, each step's KL divergence of the plain bf16 softmax from
+    the plain f32 one (bf16's own error on this context)."""
+    import dataclasses
+
+    from repro_torch.models.zoo import build_model
+
+    os.environ["REPRO_ATTN_IMPL"] = "flash"
+    named = flatten_named(params)
+    if any(tuple(x.to_local().shape) != tuple(x.shape)
+           for x in named.values()):
+        raise ValueError("seq_decode takes parameters every rank holds "
+                         "whole (a (data, 1) mesh)")
+    plain = unflatten_named({k: x.to_local() for k, x in named.items()},
+                            params)
+    gen = torch.Generator().manual_seed(args.seed + 7)
+    vocab = model.cfg.vocab_size
+    prompt = torch.randint(0, vocab, (1, args.decode_prompt),
+                           dtype=torch.int32, generator=gen).to(device)
+    feed = torch.randint(0, vocab, (args.decode_steps, 1, 1),
+                         dtype=torch.int32, generator=gen).to(device)
+    other = torch.randint(0, vocab, (1, args.decode_prompt),
+                          dtype=torch.int32, generator=gen).to(device)
+    out, want = {}, {}
+    for dt in DECODE_DTYPES:
+        m = build_model(dataclasses.replace(model.cfg, compute_dtype=dt))
+        out[dt], want[dt] = _decode_both(args, m, plain, params, mesh,
+                                         device, prompt, feed, other)
+    out["bfloat16"]["kl_own"] = [kl_div(a, b) for a, b in
+                                 zip(want["float32"], want["bfloat16"])]
+    return out
+
+
+#: the decode's compute (and cache) dtypes, each run sharded and plain
+DECODE_DTYPES = ("bfloat16", "float32")
+
+
+def kl_div(want: torch.Tensor, got: torch.Tensor) -> float:
+    """KL(softmax(want) ‖ softmax(got)) over the whole row (batch 1), in
+    f64 (nats)."""
+    lw = torch.log_softmax(want.double().reshape(-1), -1)
+    lg = torch.log_softmax(got.double().reshape(-1), -1)
+    return float((lw.exp() * (lw - lg)).sum())
+
+
+def _ulp(x: float, dtype: torch.dtype) -> float:
+    """The spacing of ``dtype``'s values at ``x``."""
+    x = max(abs(x), torch.finfo(dtype).tiny)
+    return torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(x))
+
+
+def _decode_both(args, model, plain, sharded, mesh, device, prompt, feed,
+                 other) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
+    """One dtype's plain and sequence-sharded runs after ``prompt``, and a
+    plain run after ``other`` (the control) → (the report: per step both
+    logits' largest difference, the row's largest logit, whether they are
+    within the reference's tolerance, the KL divergences of the sharded
+    softmax and of the control's from the plain one, the plain top-two
+    margin and the spacing of the dtype's values at the plain top logit,
+    both greedy tokens; seconds each way; the collectives of one sharded
+    step (no gather of a cache leaf may be among them); the plain run's
+    logits)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.core.resharding import zeros_onto
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import cache_shardings
+    from repro_torch.launch.dryrun import CollectiveRecorder
+    from repro_torch.models.layers import cast_floating
+    from repro_torch.models.transformer import dtype_of, lm_prefill
+
+    cfg = model.cfg
+    cdt = dtype_of(cfg.compute_dtype)
+    n, slots = args.decode_prompt, args.decode_slots
+    plain, sharded = cast_floating(plain, cdt), cast_floating(sharded, cdt)
+
+    def run(p, caches, token, wrap=lambda x: x):
+        """Prefill, then a step for each token of ``feed`` (``wrap``ped as
+        the run's tokens are)."""
+        out, secs = [], []
+        _sync(device)
+        t = time.time()
+        lm_prefill(p, token, caches, cfg)
+        _sync(device)
+        prefill_s = time.time() - t
+        for i in range(args.decode_steps):
+            _sync(device)
+            t = time.time()
+            logits, caches = model.decode_step(p, wrap(feed[i]), caches,
+                                               n + i)
+            _sync(device)
+            secs.append(time.time() - t)
+            out.append((logits.full_tensor() if isinstance(logits, DTensor)
+                        else logits).float())
+        return out, secs, prefill_s
+
+    with torch.no_grad():
+        want, plain_s, plain_prefill = run(
+            plain, model.init_caches(1, slots, device=device), prompt)
+        control, _, _ = run(plain, model.init_caches(1, slots, device=device),
+                            other)
+        struct = model.cache_struct(1, slots)
+        cshard = cache_shardings(mesh, struct, 1, seq_axis_sharded=True,
+                                 protects=model.cache_protects())
+        caches = zeros_onto(struct, cshard)
+
+        def replicated(x):
+            return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+        with use_mesh(mesh):
+            got, sharded_s, sharded_prefill = run(sharded, caches,
+                                                  replicated(prompt),
+                                                  replicated)
+            rec = CollectiveRecorder()
+            with rec:
+                model.decode_step(sharded, replicated(feed[0]), caches,
+                                  n + args.decode_steps)
+    leaf = flatten_named(caches)
+    cache_leaf_bytes = min(x.numel() * x.element_size() // x.shape[0]
+                           for x in leaf.values())
+    top2 = [torch.topk(b.reshape(-1), 2).values for b in want]
+    return {
+        "max_abs_diff": [float((a - b).abs().max()) for a, b in
+                         zip(got, want)],
+        "row_max": [float(b.abs().max()) for b in want],
+        "close": all(torch.allclose(a, b, rtol=DECODE_RTOL, atol=DECODE_ATOL)
+                     for a, b in zip(got, want)),
+        "kl": [kl_div(b, a) for a, b in zip(got, want)],
+        "kl_context": [kl_div(b, c) for b, c in zip(want, control)],
+        "margin": [float(t[0] - t[1]) for t in top2],
+        "top_ulp": [_ulp(float(t[0]), cdt) for t in top2],
+        # each step's greedy token, each run's own
+        "tokens_sharded": [int(_greedy(x).reshape(-1)[0]) for x in got],
+        "tokens_plain": [int(_greedy(x).reshape(-1)[0]) for x in want],
+        "step_s_sharded": sharded_s, "step_s_plain": plain_s,
+        "prefill_s_sharded": sharded_prefill,
+        "prefill_s_plain": plain_prefill,
+        "collectives": rec.counts,
+        "cache_gathers": [d for d in rec.details if d[0] == "all-gather"
+                          and d[1] >= cache_leaf_bytes],
+        "cache_placements": {k: [repr(q) for q in x.placements]
+                             for k, x in leaf.items()},
+        "cache_dtype": str(next(iter(leaf.values())).dtype),
+    }, want
+
+
+#: the sequence-sharded decode's hold to the plain one (the reference's
+#: ``tests/test_distributed_decode.py`` tolerance)
+DECODE_RTOL, DECODE_ATOL = 5e-2, 2e-2
+
+
+def _greedy(logits) -> torch.Tensor:
+    from repro_torch.serve.engine import gather_vocab
+    return torch.argmax(gather_vocab(logits[:, -1:]), dim=-1).to(
+        torch.int32)
+
+
 def _merge_boxes(struct: Dict[str, Any], meshes: Sequence[Tuple[int, ...]]
                  ) -> Dict[str, List[Any]]:
     out: Dict[str, set] = {p: set() for p in struct}
@@ -396,6 +656,8 @@ def restore(args, device: torch.device, shape: Tuple[int, ...]
         owned_only=False)
     if device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if args.decode_steps and shape[1] == 1:
+        out["decode"] = seq_decode(args, model, got, mesh, device)
     return out
 
 
@@ -454,6 +716,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="store: ';'-joined meshes to restore onto in the "
                          "same processes afterwards")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="store: sharded train steps before the stores")
+    ap.add_argument("--train-seed", type=int, default=0,
+                    help="store: the seed of the parameters, the rng and "
+                         "the data cursor of a trained state")
+    ap.add_argument("--train-batch", type=int, default=4)
+    ap.add_argument("--train-seq", type=int, default=2048)
+    ap.add_argument("--total-steps", type=int, default=3,
+                    help="store: AdamW's schedule length (warm-up 1)")
+    ap.add_argument("--decode-steps", type=int, default=0,
+                    help="restore onto a (data, 1) mesh: greedy steps of "
+                         "the sequence-sharded decode after the restore")
+    ap.add_argument("--decode-prompt", type=int, default=1536)
+    ap.add_argument("--decode-slots", type=int, default=2048)
     t_main = time.time()
     args = ap.parse_args(argv)
     args.targets = [_shape(t) for t in args.targets.split(";") if t]

@@ -34,16 +34,45 @@ states (``Sk`` may differ from ``S``), no rope, never causal; and
 :func:`gqa_decode` with ``kv_override=(k, v)``, which attends over every
 slot of the static cross cache and writes nothing.
 
-The reference's sharding hints are dropped: one device needs none.
+Sharding: the reference's hints stand where it calls them
+(``shard_hint`` on q, k and v; ``shard_decode_kv`` on the decode caches).
+On plain tensors, or with no active mesh, they are the identity and the
+code below runs as it does on one device.  On ``DTensor`` inputs:
+
+- Flash and blockwise attention run through ``local_map`` on the (batch
+  on DATA, heads on MODEL) layout, the gradient in the same layout: each
+  rank attends over its local heads (KV heads are repeated to the query
+  heads first only where they do not divide the model axis).  A
+  ``DTensor`` never reaches the kernel's launch.
+- A decode step over a cache sharded along its sequence dim
+  (:func:`_gqa_attend_sharded`, :func:`_mla_attend_sharded`) writes the new row on the rank whose
+  shard holds the slot, masks the invalid slots instead of slicing the
+  valid prefix (a slice would gather the cache), and combines the shards
+  with three all-reduces over the sequence's mesh dims: the maximum, the
+  sum of exponentials and the weighted values (f32).
 """
 from __future__ import annotations
 
+import functools
+import math
 import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.context import (
+    DATA,
+    MODEL,
+    bounded_placements,
+    is_dtensor,
+    local_range,
+    mesh_dims_sharding,
+    shard_decode_kv,
+    shard_hint,
+    split_last,
+    to_placements,
+)
 from repro_torch.kernels.ops import flash_attention_gqa
 from repro_torch.kernels.ref import repeat_kv
 from repro_torch.models.layers import apply_rope, dense_init
@@ -179,7 +208,10 @@ def gqa_attention(
     positions: Optional[torch.Tensor] = None,
     use_rope: Optional[bool] = None,             # default: cfg.use_rope
     kv_override: Optional[torch.Tensor] = None,  # cross-attn: encoder states
+    fill: Optional["KVCache"] = None,            # prefill: rows [0, S)
 ) -> torch.Tensor:
+    """``fill``: write this pass's K and V (after rope) into the cache's
+    slots ``[0, S)`` (a batched prefill, ``transformer.lm_prefill``)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = kv_override if kv_override is not None else x
@@ -192,9 +224,9 @@ def gqa_attention(
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, sk, kv, dh)
-    v = v.reshape(b, sk, kv, dh)
+    q = split_last(q, b, s, h, dh)
+    k = split_last(k, b, sk, kv, dh)
+    v = split_last(v, b, sk, kv, dh)
 
     if use_rope is None:
         use_rope = cfg.use_rope
@@ -204,15 +236,48 @@ def gqa_attention(
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
 
+    if fill is not None:
+        _write_rows(fill.k, k, 0)
+        _write_rows(fill.v, v, 0)
     is_causal = causal and kv_override is None
-    if _attn_impl() == "flash" and cfg.sliding_window is None:
+    flash = _attn_impl() == "flash" and cfg.sliding_window is None
+    if not flash:
+        k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
+    q = shard_hint(q, DATA, None, MODEL, None)
+    k = shard_hint(k, DATA, None, MODEL, None)
+    v = shard_hint(v, DATA, None, MODEL, None)
+    if flash:
         # the grouped KV heads are read in place: no repeat, no transposes
-        out = flash_attention_gqa(q, k, v, causal=is_causal)
+        out = _on_local_heads(functools.partial(
+            flash_attention_gqa, causal=is_causal), q, k, v)
     else:
-        out = blockwise_attention(q, repeat_kv(k, h // kv),
-                                  repeat_kv(v, h // kv), causal=is_causal,
-                                  window=cfg.sliding_window)
+        out = _on_local_heads(functools.partial(
+            blockwise_attention, causal=is_causal,
+            window=cfg.sliding_window), q, k, v)
     return out.reshape(b, s, h * dh) @ p["wo"]
+
+
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` → (B, S, H, dh); on ``DTensor`` inputs it runs on
+    each rank's local batch rows and heads (``local_map``), the gradient
+    in the same layout.  Query head h reads KV head h // (H/KV) locally as
+    globally as long as the KV heads split as the query heads do; where
+    they do not, they are repeated to H first."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    pl = bounded_placements(q, (0, 2))
+    mesh = q.device_mesh
+    head_split = math.prod(mesh.size(i) for i, x in enumerate(pl)
+                           if getattr(x, "dim", None) == 2)
+    if k.shape[2] != q.shape[2] and k.shape[2] % head_split:
+        rep = q.shape[2] // k.shape[2]
+        k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    q, k, v = (to_placements(t, pl) for t in (q, k, v))
+    # one output: its placements as a list (a tuple means one per output)
+    return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     in_grad_placements=(pl, pl, pl), device_mesh=mesh)(
+        q, k, v)
 
 
 # --------------------------------------------------------------------------- #
@@ -260,7 +325,7 @@ def gqa_decode(
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(b, 1, h, dh)
+    q = split_last(q, b, 1, h, dh)
     if cfg.use_rope:
         pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos_b, cfg.rope_theta)
@@ -273,23 +338,143 @@ def gqa_decode(
         if cfg.qkv_bias:
             knew = knew + p["bk"]
             vnew = vnew + p["bv"]
-        knew = knew.reshape(b, 1, kvh, dh)
-        vnew = vnew.reshape(b, 1, kvh, dh)
+        knew = split_last(knew, b, 1, kvh, dh)
+        vnew = split_last(vnew, b, 1, kvh, dh)
         if cfg.use_rope:
             knew = apply_rope(knew, pos_b, cfg.rope_theta)
         c = cache.k.shape[1]
         slot = pos % c if cache.is_windowed(cfg) else pos
-        cache.k[:, slot] = knew[:, 0]
-        cache.v[:, slot] = vnew[:, 0]
         n = min(pos + 1, c)        # the slots the reference's mask keeps
-        ck, cv = cache.k[:, :n], cache.v[:, :n]
+        if is_dtensor(cache.k):
+            _write_rows(cache.k, knew, slot)
+            _write_rows(cache.v, vnew, slot)
+            ck, cv = cache.k, cache.v              # masked, not sliced
+        else:
+            cache.k[:, slot] = knew[:, 0]
+            cache.v[:, slot] = vnew[:, 0]
+            ck, cv = cache.k[:, :n], cache.v[:, :n]
 
+    ck = shard_decode_kv(ck)
+    cv = shard_decode_kv(cv)
+    if is_dtensor(ck):
+        n = n if kv_override is None else ck.shape[1]
+        out = _gqa_attend_sharded(q, ck, cv, n, scale)
+        return out @ p["wo"], cache
     # query head h reads KV head h // rep, as repeat_kv would lay them out
     qg = q[:, 0].reshape(b, kvh, h // kvh, dh)
     scores = torch.einsum("bgrd,bsgd->bgrs", qg, ck).float() * scale
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bgrs,bsgd->bgrd", probs, cv).reshape(b, 1, h * dh)
     return out @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
+# decode over a DTensor cache (batch, sequence or heads sharded)
+# --------------------------------------------------------------------------- #
+
+
+def _as_dtensor(x, mesh):
+    """A plain tensor as a replicated ``DTensor`` on ``mesh`` (every rank
+    holds the same value); a ``DTensor`` as it is."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _write_rows(leaf, rows, start: int) -> None:
+    """``leaf[:, start:start + n] = rows`` (rows (B, n, ...)) in place; on a
+    ``DTensor`` cache each rank writes the part of the slots its shard of
+    the sequence dim holds, into its local storage (a decode step's one
+    row lands on one rank only)."""
+    n = rows.shape[1]
+    if not is_dtensor(leaf):
+        leaf[:, start:start + n] = rows
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = leaf.device_mesh
+    pl = tuple(Replicate() if getattr(x, "dim", None) == 1 else x
+               for x in bounded_placements(leaf, (0, 1, 2)))
+    rows = to_placements(_as_dtensor(rows, mesh), pl).to_local()
+    lo, hi = local_range(leaf, 1)
+    a, b = max(lo, start), min(hi, start + n)
+    if a < b:
+        leaf.to_local()[:, a - lo:b - lo] = rows[:, a - start:b - start]
+
+
+def _query_placements(cache, q, q_heads: int) -> tuple:
+    """q's layout for a decode over ``cache``: the cache's batch shards,
+    replicated along the cache's sequence shards, and heads (q's dim
+    ``q_heads``) split where the cache splits its heads (dim 2) or, for a
+    cache with no heads dim, where q already splits them."""
+    from torch.distributed.tensor import Replicate, Shard
+    own = bounded_placements(q, (0, q_heads))
+    out = []
+    for i, c in enumerate(bounded_placements(cache, (0, 1, 2))):
+        d = getattr(c, "dim", None)
+        if d == 0:
+            out.append(Shard(0))
+        elif d == 2:
+            out.append(Shard(q_heads))
+        elif d == 1 or cache.ndim > 3:
+            out.append(Replicate())
+        else:
+            out.append(own[i])
+    return tuple(out)
+
+
+def _all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    for i in dims:
+        x = funcol.all_reduce(x, op, (mesh, i))
+    return x
+
+
+def _softmax_combine(scores: torch.Tensor, values: torch.Tensor, spec: str,
+                     mesh, seq_dims) -> torch.Tensor:
+    """The softmax-weighted average of ``values`` over the last dim of
+    ``scores``, split across the ranks of ``seq_dims``: ``scores`` (...,
+    S_local) f32 with the invalid slots at ``_NEG_INF``, ``spec`` the
+    einsum of the probabilities and ``values``.  Three all-reduces (max,
+    sum of exponentials, weighted values) and no gather.  As on one
+    device, the probabilities are rounded to the values' dtype before the
+    product; the product is summed in f32 and rounded once → (..., X) in
+    the values' dtype."""
+    m = _all_reduce(scores.amax(dim=-1, keepdim=True), "max", mesh, seq_dims)
+    e = torch.exp(scores - m)
+    den = _all_reduce(e.sum(dim=-1, keepdim=True), "sum", mesh, seq_dims)
+    probs = (e / den).to(values.dtype)
+    out = _all_reduce(torch.einsum(spec, probs.float(), values.float()),
+                      "sum", mesh, seq_dims)
+    return out.to(values.dtype)
+
+
+def _valid_slots(lo: int, count: int, n: int, device) -> torch.Tensor:
+    return (lo + torch.arange(count, device=device)) < n
+
+
+def _gqa_attend_sharded(q, ck, cv, n: int, scale: float):
+    """q (B, 1, H, dh) against a ``DTensor`` cache (B, C, KV, dh) whose
+    first ``n`` slots are valid → (B, 1, H·dh) ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+    mesh = ck.device_mesh
+    cpl = bounded_placements(ck, (0, 1, 2))
+    ck, cv = to_placements(ck, cpl), to_placements(cv, cpl)
+    qpl = _query_placements(ck, _as_dtensor(q, mesh), 2)
+    ql = to_placements(_as_dtensor(q, mesh), qpl).to_local()
+    kl, vl = ck.to_local(), cv.to_local()
+    bl, cl, kvl, dh = kl.shape
+    hl = ql.shape[2]
+    qg = ql[:, 0].reshape(bl, kvl, hl // kvl, dh)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, kl).float() * scale
+    lo, _ = local_range(ck, 1)
+    scores = torch.where(_valid_slots(lo, cl, n, kl.device), scores,
+                         _NEG_INF)
+    out = _softmax_combine(scores, vl, "bgrs,bsgd->bgrd", mesh,
+                           mesh_dims_sharding(ck, 1))
+    out = out.reshape(bl, 1, hl * dh)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -313,15 +498,15 @@ def mla_attention(
     pos = positions if positions is not None else \
         torch.arange(s, device=x.device)[None, :]
 
-    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, s, h, qk)
+    q = split_last((x @ p["w_dq"]) @ p["w_uq"], b, s, h, qk)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
     c_kv = x @ p["w_dkv"]                                   # (B, S, r)
     k_rope = apply_rope((x @ p["w_kr"]).reshape(b, s, 1, m.qk_rope_dim),
                         pos, cfg.rope_theta)
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_dim)
-    vv = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k_nope = split_last(c_kv @ p["w_uk"], b, s, h, m.qk_nope_dim)
+    vv = split_last(c_kv @ p["w_uv"], b, s, h, m.v_head_dim)
 
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
@@ -366,30 +551,68 @@ def mla_decode(
     scale = float(1.0 / torch.tensor(float(qk)).sqrt())
     pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
 
-    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(b, 1, h, qk)
+    q = split_last((x @ p["w_dq"]) @ p["w_uq"], b, 1, h, qk)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, pos_b, cfg.rope_theta)
     # fold W_uk: q_abs[h, r] = q_nope[h, n] · W_uk[r, h, n]
-    w_uk = p["w_uk"].reshape(r, h, m.qk_nope_dim)
+    w_uk = split_last(p["w_uk"], r, h, m.qk_nope_dim)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)   # (B, H, r)
 
     c_new = x @ p["w_dkv"]                                     # (B, 1, r)
     kr_new = apply_rope((x @ p["w_kr"]).reshape(b, 1, 1, m.qk_rope_dim),
                         pos_b, cfg.rope_theta)
-    cache.c_kv[:, pos] = c_new[:, 0]
-    cache.k_rope[:, pos] = kr_new[:, 0, 0]
-    c_kv = cache.c_kv[:, :pos + 1]      # the slots the reference's mask keeps
-    k_rope = cache.k_rope[:, :pos + 1]
+    if is_dtensor(cache.c_kv):
+        _write_rows(cache.c_kv, c_new, pos)
+        _write_rows(cache.k_rope, kr_new[:, :, 0], pos)
+        c_kv, k_rope = cache.c_kv, cache.k_rope      # masked, not sliced
+    else:
+        cache.c_kv[:, pos] = c_new[:, 0]
+        cache.k_rope[:, pos] = kr_new[:, 0, 0]
+        # the slots the reference's mask keeps
+        c_kv = cache.c_kv[:, :pos + 1]
+        k_rope = cache.k_rope[:, :pos + 1]
 
-    sc = torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
-    sc = sc + torch.einsum("bhe,bse->bhs", q_rope[:, 0], k_rope)
-    sc = sc.float() * scale
-    probs = torch.softmax(sc, dim=-1).to(c_kv.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv)          # (B, H, r)
-    w_uv = p["w_uv"].reshape(r, h, m.v_head_dim)
+    c_kv = shard_decode_kv(c_kv, model_dim=None)
+    k_rope = shard_decode_kv(k_rope, model_dim=None)
+    if is_dtensor(c_kv):
+        o_lat = _mla_attend_sharded(q_abs, q_rope[:, 0], c_kv, k_rope,
+                                    pos + 1, scale)
+    else:
+        o_lat = _mla_attend(q_abs, q_rope[:, 0], c_kv, k_rope, scale)
+    w_uv = split_last(p["w_uv"], r, h, m.v_head_dim)
     o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).reshape(
         b, 1, h * m.v_head_dim)
     return o @ p["wo"], cache
+
+
+def _mla_attend(q_abs, q_rope, c_kv, k_rope, scale: float):
+    """The latent average over a plain cache's valid prefix → (B, H, r)."""
+    sc = torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
+    sc = sc + torch.einsum("bhe,bse->bhs", q_rope, k_rope)
+    sc = sc.float() * scale
+    probs = torch.softmax(sc, dim=-1).to(c_kv.dtype)
+    return torch.einsum("bhs,bsr->bhr", probs, c_kv)
+
+
+def _mla_attend_sharded(q_abs, q_rope, c_kv, k_rope, n: int, scale: float):
+    """:func:`_mla_attend` over a ``DTensor`` latent cache whose first
+    ``n`` slots are valid → (B, H, r) ``DTensor`` in the cache's dtype."""
+    from torch.distributed.tensor import DTensor
+    mesh = c_kv.device_mesh
+    cpl = bounded_placements(c_kv, (0, 1))
+    c_kv, k_rope = to_placements(c_kv, cpl), to_placements(k_rope, cpl)
+    qpl = _query_placements(c_kv, _as_dtensor(q_abs, mesh), 1)
+    qa = to_placements(_as_dtensor(q_abs, mesh), qpl).to_local()
+    qr = to_placements(_as_dtensor(q_rope, mesh), qpl).to_local()
+    cl, krl = c_kv.to_local(), k_rope.to_local()
+    sc = torch.einsum("bhr,bsr->bhs", qa, cl)
+    sc = (sc + torch.einsum("bhe,bse->bhs", qr, krl)).float() * scale
+    lo, _ = local_range(c_kv, 1)
+    sc = torch.where(_valid_slots(lo, cl.shape[1], n, cl.device), sc,
+                     _NEG_INF)
+    o = _softmax_combine(sc, cl, "bhs,bsr->bhr", mesh,
+                         mesh_dims_sharding(c_kv, 1))
+    return DTensor.from_local(o, mesh, qpl, run_check=False)
 
 
 # --------------------------------------------------------------------------- #

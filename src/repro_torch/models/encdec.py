@@ -19,26 +19,44 @@ is written in place; the cross-attention K/V are computed once from the
 encoder output (:func:`precompute_cross_kv`) and static thereafter.
 :func:`init_encdec_caches` fills them with zeros, as the reference does:
 a server that never runs the encoder decodes over zero cross K/V.
+
+Sharding hints stand where the reference calls them (the residual
+stream after the positions, in the encoder and in the decoder); on
+``DTensor`` parameters and batches the same functions run sharded
+(``dist/context.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.context import (
+    DATA,
+    gather_data_shards,
+    resolve_partial,
+    shard_hint,
+    sharded_scope,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     cast_floating,
     embed_init,
+    embed_lookup,
     init_mlp,
     init_rmsnorm,
     mlp,
     rmsnorm,
 )
-from repro_torch.models.transformer import _stack, _unstack, dtype_of, meta_tree
+from repro_torch.models.transformer import (
+    _stack,
+    _unstack,
+    dtype_of,
+    layer_view,
+    meta_tree,
+)
 
 Params = Dict[str, Any]
 
@@ -111,21 +129,23 @@ def _layers(stacked: Params) -> list:
 
 
 def _enc_body(h: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
-    h = h + attn.gqa_attention(
+    h = h + resolve_partial(attn.gqa_attention(
         p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg,
-        causal=False, use_rope=False)
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act)
+        causal=False, use_rope=False))
+    return h + resolve_partial(
+        mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act))
 
 
 def _dec_body(h: torch.Tensor, p: Params, enc_out: torch.Tensor,
               cfg: ArchConfig) -> torch.Tensor:
-    h = h + attn.gqa_attention(
+    h = h + resolve_partial(attn.gqa_attention(
         p["self_attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg,
-        causal=True, use_rope=False)
-    h = h + attn.gqa_attention(
+        causal=True, use_rope=False))
+    h = h + resolve_partial(attn.gqa_attention(
         p["cross_attn"], rmsnorm(p["ln_x"], h, cfg.norm_eps), cfg,
-        kv_override=enc_out)
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act)
+        kv_override=enc_out))
+    return h + resolve_partial(
+        mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act))
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig,
@@ -134,7 +154,7 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig,
     cdt = dtype_of(cfg.compute_dtype)
     t, d = frames.shape[1], cfg.d_model
     pe = sinusoidal_positions(t, d).to(device=frames.device, dtype=cdt)
-    h = frames.to(cdt) + pe[None]
+    h = shard_hint(frames.to(cdt) + pe[None], DATA, None, None)
     for p in _layers(params["enc_layers"]):
         if remat:
             h = checkpoint(_enc_body, h, p, cfg, use_reentrant=False)
@@ -154,10 +174,10 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
     """Teacher-forced decoder pass → logits (B, S, V)."""
     cdt = dtype_of(cfg.compute_dtype)
     s, d = tokens.shape[1], cfg.d_model
-    # the gather of the reference's embed[tokens]; F.embedding's backward
-    # is deterministic on a card
-    h = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    # the gather of the reference's embed[tokens]
+    h = embed_lookup(tokens, params["embed"]).to(cdt)
     h = h + sinusoidal_positions(s, d).to(device=h.device, dtype=cdt)[None]
+    h = shard_hint(h, DATA, None, None)
     for p in _layers(params["dec_layers"]):
         if remat:
             h = checkpoint(_dec_body, h, p, enc_out, cfg, use_reentrant=False)
@@ -169,10 +189,13 @@ def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
 def encdec_forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
                    cfg: ArchConfig, remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    params = cast_floating(params, dtype_of(cfg.compute_dtype))
-    enc_out = encode(params, frames, cfg, remat=remat)
-    logits = decode_train(params, tokens, enc_out, cfg, remat=remat)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    with sharded_scope(params, frames, tokens):
+        params = gather_data_shards(
+            cast_floating(params, dtype_of(cfg.compute_dtype)))
+        enc_out = encode(params, frames, cfg, remat=remat)
+        logits = decode_train(params, tokens, enc_out, cfg, remat=remat)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -227,24 +250,33 @@ def encdec_decode_step(params: Params, token: torch.Tensor,
                        ) -> Tuple[torch.Tensor, EncDecCache]:
     """One token (B, 1) → (logits (B, 1, V), the same caches with each
     layer's self-KV row ``pos`` written in place)."""
-    pos = int(pos)
+    with sharded_scope(params, token, caches):
+        return _encdec_decode_step(params, token, caches, int(pos), cfg)
+
+
+def _encdec_decode_step(params: Params, token: torch.Tensor,
+                        caches: EncDecCache, pos: int, cfg: ArchConfig
+                        ) -> Tuple[torch.Tensor, EncDecCache]:
     cdt = dtype_of(cfg.compute_dtype)
-    params = cast_floating(params, cdt)
+    params = gather_data_shards(cast_floating(params, cdt))
     d = cfg.d_model
-    h = F.embedding(token.long(), params["embed"]).to(cdt)
+    h = resolve_partial(embed_lookup(token, params["embed"]).to(cdt))
     ang = torch.tensor(float(pos), dtype=torch.float32) * _div_term(d)
     pe = torch.zeros((d,), dtype=torch.float32)
     pe[0::2] = torch.sin(ang)
     pe[1::2] = torch.cos(ang)
     h = h + pe.to(device=h.device, dtype=cdt)[None, None]
     for i, p in enumerate(_layers(params["dec_layers"])):
-        kvc = attn.KVCache(caches.self_kv.k[i], caches.self_kv.v[i])
+        kvc = attn.KVCache(layer_view(caches.self_kv.k, i),
+                           layer_view(caches.self_kv.v, i))
         y, _ = attn.gqa_decode(
             p["self_attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), kvc, pos, cfg)
-        h = h + y
+        h = h + resolve_partial(y)
         y, _ = attn.gqa_decode(
             p["cross_attn"], rmsnorm(p["ln_x"], h, cfg.norm_eps), kvc, pos,
-            cfg, kv_override=(caches.cross_k[i], caches.cross_v[i]))
-        h = h + y
-        h = h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act)
+            cfg, kv_override=(layer_view(caches.cross_k, i),
+                              layer_view(caches.cross_v, i)))
+        h = h + resolve_partial(y)
+        h = h + resolve_partial(
+            mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps), cfg.act))
     return _tied_logits(params, h, cfg), caches

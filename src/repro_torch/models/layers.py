@@ -19,6 +19,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.context import is_dtensor
+
 Params = Dict[str, Any]
 
 
@@ -136,6 +138,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # --------------------------------------------------------------------------- #
+# embedding lookup
+# --------------------------------------------------------------------------- #
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (``F.embedding``: its backward is deterministic on a
+    card).  A ``DTensor`` table sharded along the vocab is looked up on
+    each rank's rows (``local_map``): tokens outside a rank's rows give
+    zeros there, and the output is a partial sum over the vocab's mesh
+    dims — a plain ``Partial``, which the residual stream's hint
+    all-reduces, where DTensor's own rule leaves a masked partial that its
+    gradient cannot be returned to."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(table) or not any(
+            isinstance(q, Shard) and q.dim == 0 for q in table.placements):
+        return F.embedding(tokens.long(), table)
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.context import local_range, to_placements
+    mesh = table.device_mesh
+    tokens = to_placements(tokens, [
+        q if isinstance(q, Shard) and q.dim == 0 and isinstance(
+            t, Replicate) else Replicate()
+        for q, t in zip(tokens.placements, table.placements)])
+    lo, hi = local_range(table, 0)
+    out_pl = [Partial() if isinstance(t, Shard) and t.dim == 0
+              else q for q, t in zip(tokens.placements, table.placements)]
+    grad_pl = [t if isinstance(t, Shard) else Partial()
+               if isinstance(q, Shard) else Replicate()
+               for q, t in zip(tokens.placements, table.placements)]
+
+    def local(tok, rows):
+        tok = tok.long()
+        mine = (tok >= lo) & (tok < hi)
+        got = F.embedding(torch.where(mine, tok - lo, 0), rows)
+        return got * mine[..., None].to(got.dtype)
+
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(tokens.placements, table.placements),
+                     in_grad_placements=(tokens.placements, grad_pl),
+                     device_mesh=mesh)(tokens, table)
+
+
+# --------------------------------------------------------------------------- #
 # losses
 # --------------------------------------------------------------------------- #
 
@@ -158,5 +204,14 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     """Stable CE; logits (..., V) fp32-promoted, labels int (...)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # a gather along a vocab-sharded dim leaves a masked partial sum
+        # that DTensor cannot subtract: take the label's logit by a one-hot
+        # product instead (exact: one non-zero term per row)
+        hot = labels[..., None].long() == torch.arange(
+            logits.shape[-1], device=logits.device)
+        label_logit = torch.sum(logits * hot, dim=-1)
+    else:
+        label_logit = torch.gather(logits, -1,
+                                   labels[..., None].long())[..., 0]
     return lse - label_logit

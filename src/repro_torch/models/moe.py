@@ -23,6 +23,13 @@ router to f32).  One-hot rows are comparisons against ``arange``, as
 of zeros (``F.one_hot`` raises there, and asserts on a card), and no
 scatter runs under deterministic mode.  Masks and positions stay
 integers.
+
+On ``DTensor`` parameters (experts over MODEL by the rules) and
+batch-sharded tokens the layer runs as it is: every operator here has a
+DTensor sharding rule, none gathers an expert weight, and the plain
+constants (``arange``, the zero buffers) meet ``DTensor`` operands
+inside ``dist.context.sharded_scope``.  The collectives of a forward are
+in ``PERF.md`` (§6, PR 23).
 """
 from __future__ import annotations
 

@@ -18,6 +18,13 @@ The decode steps take one token and an O(1) state (:class:`RWKVState`,
 place* and return the same state, as the attention decode writes its cache
 (``models/attention.py``); the reference returns a new state.  The values
 are the reference's.
+
+On ``DTensor`` parameters (the projections column- and row-parallel over
+MODEL by the rules) and batch-sharded inputs the chunked forms run as
+they are: every operator here has a DTensor sharding rule, none gathers
+a parameter, and the scans' plain constants (masks, zero states) meet
+``DTensor`` operands inside ``dist.context.sharded_scope``.  The
+collectives of a forward are in ``PERF.md`` (§6, PR 23).
 """
 from __future__ import annotations
 

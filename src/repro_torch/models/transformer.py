@@ -36,6 +36,13 @@ returns the caches it was given.
 A MoE layer's router aux loss is summed over the layers, as in the
 reference.  The encoder-decoder is ``models/encdec.py``.
 
+Sharding hints stand where the reference calls them: the residual stream
+after the embedding and after each attention or Mamba block (batch on
+DATA), the logits (vocab on MODEL).  On ``DTensor`` parameters, batches
+and caches the same functions run sharded (``dist/context.py``); a
+decode step's per-layer cache views are ``DTensor`` views of each rank's
+local storage, so the in-place writes reach the stacked caches.
+
 Forward signatures:
   ``lm_forward(params, tokens, cfg, extra_embeds=None) → (logits, aux)``
   ``lm_decode_step(params, token, caches, pos, cfg) → (logits, caches)``
@@ -45,16 +52,25 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.context import (
+    DATA,
+    MODEL,
+    gather_data_shards,
+    is_dtensor,
+    resolve_partial,
+    shard_hint,
+    sharded_scope,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     cast_floating,
     embed_init,
+    embed_lookup,
     init_mlp,
     init_rmsnorm,
     mlp,
@@ -130,7 +146,7 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig, moe_layer: bool
     else:
         y = mlp(p["mlp"], x, cfg.act)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + y, aux
+    return h + resolve_partial(y), aux
 
 
 def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str,
@@ -138,17 +154,18 @@ def apply_layer(p: Params, h: torch.Tensor, cfg: ArchConfig, kind: str,
     """Pre-norm residual block → (h, aux_loss)."""
     x = rmsnorm(p["ln1"], h, cfg.norm_eps)
     if kind == "attn":
-        h = h + attn.attention(p["attn"], x, cfg)
+        h = h + resolve_partial(attn.attention(p["attn"], x, cfg))
     elif kind == "mamba":
-        h = h + ssm_mod.mamba_block(p["mixer"], x, cfg)
+        h = h + resolve_partial(ssm_mod.mamba_block(p["mixer"], x, cfg))
     elif kind == "rwkv6":
-        h = h + ssm_mod.rwkv6_time_mix(p["mixer"], x, cfg)
-        h = h + ssm_mod.rwkv6_channel_mix(
-            p["mixer"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        h = h + resolve_partial(ssm_mod.rwkv6_time_mix(p["mixer"], x, cfg))
+        h = h + resolve_partial(ssm_mod.rwkv6_channel_mix(
+            p["mixer"], rmsnorm(p["ln2"], h, cfg.norm_eps)))
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
     else:
         raise ValueError(kind)
-    return _ffn(p, h, cfg, moe_layer)
+    h, aux = _ffn(p, h, cfg, moe_layer)
+    return shard_hint(h, DATA, None, None), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -242,7 +259,7 @@ def lm_logits(params: Params, h: torch.Tensor, cfg: ArchConfig
               ) -> torch.Tensor:
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    return shard_hint(h @ w.to(h.dtype), DATA, None, MODEL)
 
 
 def lm_forward(
@@ -253,15 +270,44 @@ def lm_forward(
     extra_embeds: Optional[torch.Tensor] = None,  # (B, P, d) prepended (vlm)
     remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    cdt = dtype_of(cfg.compute_dtype)
-    params = cast_floating(params, cdt)
-    # the gather of the reference's embed[tokens]; F.embedding's backward
-    # is deterministic on a card
-    h = F.embedding(tokens.long(), params["embed"]).to(cdt)
-    if extra_embeds is not None:
-        h = torch.cat([extra_embeds.to(cdt), h], dim=1)
-    h, aux = lm_backbone(params, h, cfg, remat=remat)
-    return lm_logits(params, h, cfg), aux
+    with sharded_scope(params, tokens):
+        cdt = dtype_of(cfg.compute_dtype)
+        params = gather_data_shards(cast_floating(params, cdt))
+        # the gather of the reference's embed[tokens]
+        h = embed_lookup(tokens, params["embed"]).to(cdt)
+        if extra_embeds is not None:
+            h = resolve_partial(h)
+            h = torch.cat([extra_embeds.to(cdt), h], dim=1)
+        h = shard_hint(h, DATA, None, None)
+        h, aux = lm_backbone(params, h, cfg, remat=remat)
+        return lm_logits(params, h, cfg), aux
+
+
+def lm_prefill(params: Params, tokens: torch.Tensor, caches: Any,
+               cfg: ArchConfig) -> torch.Tensor:
+    """A batched prefill of GQA layers (no sliding window): one forward
+    pass over the prompt ``tokens`` (B, S) that writes every layer's K and
+    V rows into the caches' slots ``[0, S)`` → the last position's logits
+    (B, 1, V).  The sequential prefill (one decode step per token, the
+    reference's) gives the same cache up to rounding; on ``DTensor``
+    caches each rank writes the slots its shard holds."""
+    if _pattern(cfg) != ("attn",) or cfg.attn_kind == "mla" \
+            or cfg.sliding_window is not None:
+        raise ValueError("lm_prefill takes GQA layers without a window")
+    with sharded_scope(params, tokens, caches):
+        cdt = dtype_of(cfg.compute_dtype)
+        params = gather_data_shards(cast_floating(params, cdt))
+        h = embed_lookup(tokens, params["embed"]).to(cdt)
+        h = shard_hint(h, DATA, None, None)
+        n_groups = params["groups"][0]["ln1"]["scale"].shape[0]
+        for g, p in enumerate(_unstack(params["groups"][0], n_groups)):
+            fill = attn.KVCache(*(layer_view(x, g) for x in caches[0]))
+            h = h + resolve_partial(attn.gqa_attention(
+                p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), cfg,
+                fill=fill))
+            h, _ = _ffn(p, h, cfg, _is_moe_layer(cfg, 0))
+            h = shard_hint(h, DATA, None, None)
+        return lm_logits(params, h[:, -1:], cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -318,19 +364,44 @@ def lm_decode_step(
     pos,                                       # int (or 0-d tensor)
     cfg: ArchConfig,
 ) -> Tuple[torch.Tensor, Any]:
-    pos = int(pos)
+    with sharded_scope(params, token, caches):
+        return _lm_decode_step(params, token, caches, int(pos), cfg)
+
+
+def layer_view(x: torch.Tensor, g: int) -> torch.Tensor:
+    """``x[g]`` of a stacked leaf, a view that in-place writes go through;
+    of a ``DTensor`` (dim 0 unsharded), the ``DTensor`` over each rank's
+    local ``[g]``."""
+    if not is_dtensor(x):
+        return x[g]
+    from torch.distributed.tensor import DTensor, Shard
+    pl = []
+    for q in x.placements:
+        if isinstance(q, Shard):
+            if q.dim % x.ndim == 0:
+                raise ValueError("layer_view: the stacked dim is sharded")
+            q = Shard(q.dim % x.ndim - 1)
+        pl.append(q)
+    shape = torch.Size(x.shape[1:])
+    return DTensor.from_local(
+        x.to_local()[g], x.device_mesh, pl, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _lm_decode_step(params: Params, token: torch.Tensor, caches: Any,
+                    pos: int, cfg: ArchConfig) -> Tuple[torch.Tensor, Any]:
     cdt = dtype_of(cfg.compute_dtype)
-    params = cast_floating(params, cdt)
+    params = gather_data_shards(cast_floating(params, cdt))
     pattern = _pattern(cfg)
     n_groups = params["groups"][0]["ln1"]["scale"].shape[0]
     layers = [_unstack(params["groups"][i], n_groups)
               for i in range(len(pattern))]
-    h = F.embedding(token.long(), params["embed"]).to(cdt)
+    h = resolve_partial(embed_lookup(token, params["embed"]).to(cdt))
     for g in range(n_groups):
         for i, kind in enumerate(pattern):
             p = layers[i][g]
             c = caches[i]
-            c = type(c)(*(x[g] for x in c))   # views: written in place
+            c = type(c)(*(layer_view(x, g) for x in c))  # written in place
             x = rmsnorm(p["ln1"], h, cfg.norm_eps)
             if kind == "attn":
                 y, _ = attn.attention_decode(p["attn"], x, c, pos, cfg)
@@ -338,10 +409,11 @@ def lm_decode_step(
                 y, _ = ssm_mod.mamba_decode_step(p["mixer"], x, c, cfg)
             else:
                 y, c = ssm_mod.rwkv6_decode_step(p["mixer"], x, c, cfg)
-                h = h + y
+                h = h + resolve_partial(y)
                 y, _ = ssm_mod.rwkv6_channel_mix_decode(
                     p["mixer"], rmsnorm(p["ln2"], h, cfg.norm_eps), c)
-                h = h + y
+                h = h + resolve_partial(y)
                 continue
-            h, _ = _ffn(p, h + y, cfg, _is_moe_layer(cfg, i))
+            h, _ = _ffn(p, h + resolve_partial(y), cfg,
+                        _is_moe_layer(cfg, i))
     return lm_logits(params, h, cfg), caches

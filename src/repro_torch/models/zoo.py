@@ -12,6 +12,9 @@ batch carries ``frames`` beside ``tokens``):
   init_caches(batch, max_len, device="cuda") → caches
   decode_step(params, token, caches, pos) → (logits, caches)
 
+and, per architecture, :func:`batch_struct` (one training batch as
+``meta`` tensors: the dry-run's input) and :func:`make_dummy_batch`.
+
 ``decode_step`` updates the caches (KV or latent rows, recurrent states)
 in place and returns them.  An encoder-decoder's ``init_caches`` takes an
 ``enc_len`` (default ``max_len``) for its static cross K/V.
@@ -106,3 +109,57 @@ def _encdec_cache_struct(batch: int, max_len: int, cfg: ArchConfig,
 
 def _encdec_decode(params, token, caches, pos, cfg: ArchConfig):
     return encdec_mod.encdec_decode_step(params, token, caches, pos, cfg)
+
+
+# --------------------------------------------------------------------------- #
+# batch construction (real + abstract)
+# --------------------------------------------------------------------------- #
+
+
+def batch_struct(cfg: ArchConfig, global_batch: int, seq_len: int,
+                 device="meta") -> Dict[str, torch.Tensor]:
+    """One training batch of this architecture as empty tensors on
+    ``device`` (``meta`` by default: shapes and dtypes only; the stub
+    frontends' inputs included), with the reference's keys, shapes and
+    dtypes."""
+    f = getattr(torch, cfg.compute_dtype)
+    i32 = torch.int32
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if cfg.encdec:
+        return {
+            "frames": empty((global_batch, seq_len, cfg.d_model), f),
+            "tokens": empty((global_batch, seq_len), i32),
+            "labels": empty((global_batch, seq_len), i32),
+        }
+    if cfg.frontend == "vision_stub":
+        p = cfg.n_frontend_tokens
+        return {
+            "patch_embeds": empty((global_batch, p, cfg.d_model), f),
+            "tokens": empty((global_batch, seq_len - p), i32),
+            "labels": empty((global_batch, seq_len), i32),
+        }
+    return {
+        "tokens": empty((global_batch, seq_len), i32),
+        "labels": empty((global_batch, seq_len), i32),
+    }
+
+
+def make_dummy_batch(cfg: ArchConfig, global_batch: int, seq_len: int,
+                     gen: Optional[torch.Generator] = None,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """A batch of :func:`batch_struct`'s shapes: integer leaves uniform in
+    ``[0, vocab)``, floating ones normal × 0.02, drawn on the host from
+    ``gen`` (seed 0 by default), in the struct's order."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for name, s in batch_struct(cfg, global_batch, seq_len).items():
+        if s.dtype.is_floating_point:
+            x = (torch.randn(s.shape, generator=gen) * 0.02).to(s.dtype)
+        else:
+            x = torch.randint(0, cfg.vocab_size, s.shape, generator=gen,
+                              dtype=s.dtype)
+        out[name] = x if device is None else x.to(device)
+    return out

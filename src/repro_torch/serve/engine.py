@@ -41,6 +41,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.protect import flatten_named, unflatten_named
+from repro_torch.dist.context import bounded_placements, is_dtensor, \
+    to_placements
 from repro_torch.models.layers import cast_floating
 from repro_torch.models.transformer import dtype_of
 from repro_torch.models.zoo import Model
@@ -82,15 +84,28 @@ def make_serve_step(model: Model
     """serve_step(params, token (B,1), caches, pos) → (next_token, caches).
 
     Greedy argmax sampling (deterministic — serving benchmarks measure the
-    system, not the sampler).
+    system, not the sampler).  On ``DTensor`` parameters, caches and token
+    (the caches batch- or sequence-sharded by ``dist/sharding.
+    cache_shardings``) the step runs sharded and returns a ``DTensor``
+    token with the logits' batch layout.
     """
 
     def serve_step(params, token, caches, pos):
         logits, caches = model.decode_step(params, token, caches, pos)
-        nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        nxt = torch.argmax(gather_vocab(logits[:, -1:]), dim=-1).to(
+            torch.int32)
         return nxt, caches
 
     return serve_step
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Logits whose vocab dim is sharded (a ``DTensor``) with every rank
+    holding the whole vocab of its rows, for an argmax; others as they
+    are."""
+    if not is_dtensor(logits):
+        return logits
+    return to_placements(logits, bounded_placements(logits, (0,)))
 
 
 def _copy_state(st: ServeState) -> ServeState:

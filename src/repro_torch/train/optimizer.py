@@ -16,6 +16,13 @@ the functional update's.
 
 ``count`` and the learning rate live on the host; the moments live with
 the parameters.
+
+``DTensor`` leaves: the gradients come in their moments' layout
+(``train/step.reduce_grads``); the global norm is one sum of per-leaf
+partial sums, reduced once, so it is the same on every rank; each
+parameter is updated in its moments' layout (under ZeRO-1 each rank
+updates its data shard) and redistributed back to its own (the all-gather
+of ZeRO-1).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.dist.context import is_dtensor, sharded_scope, to_placements
 
 
 class AdamWConfig(NamedTuple):
@@ -77,8 +86,17 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    with sharded_scope(tree):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+
+
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``ref``'s layout (``DTensor``s on one mesh), else as it
+    is."""
+    if is_dtensor(x) and is_dtensor(ref):
+        return to_placements(x, ref.placements)
+    return x
 
 
 def clip_by_global_norm(tree: Any, max_norm: float
@@ -90,6 +108,8 @@ def clip_by_global_norm(tree: Any, max_norm: float
 
 def adamw_init(params: Any) -> AdamWState:
     def zeros(p):
+        if is_dtensor(p):           # in the parameter's layout
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     return AdamWState(
@@ -102,26 +122,29 @@ def adamw_init(params: Any) -> AdamWState:
 def adamw_update(cfg: AdamWConfig, grads: Any, state: AdamWState,
                  params: Any) -> Tuple[Any, AdamWState, dict]:
     """Returns (new_params, new_state, metrics)."""
-    grads = tree_map(lambda g: g.float(), grads)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    count = state.count + 1
-    lr = lr_schedule(cfg, count)
-    b1c = 1 - cfg.b1 ** count.float()
-    b2c = 1 - cfg.b2 ** count.float()
+    with sharded_scope(params, grads):
+        grads = tree_map(lambda g, m: _like(g.float(), m), grads, state.mu)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        count = state.count + 1
+        lr = lr_schedule(cfg, count)
+        b1c = 1 - cfg.b1 ** count.float()
+        b2c = 1 - cfg.b2 ** count.float()
 
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state.mu, grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g,
-                  state.nu, grads)
+        mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state.mu,
+                      grads)
+        nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g,
+                      state.nu, grads)
 
-    def upd(p, m, v):
-        mhat = m / b1c
-        vhat = v / b2c
-        step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:                             # decay matrices only
-            step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype)
+        def upd(p, m, v):
+            pm = _like(p, m)                         # the moments' layout
+            mhat = m / b1c
+            vhat = v / b2c
+            step = mhat / (torch.sqrt(vhat) + cfg.eps)
+            if p.dim() >= 2:                         # decay matrices only
+                step = step + cfg.weight_decay * pm.float()
+            return _like((pm.float() - lr * step).to(p.dtype), p)
 
-    new_params = tree_map(upd, params, mu, nu)
+        new_params = tree_map(upd, params, mu, nu)
     return new_params, AdamWState(count, mu, nu), {"lr": lr,
                                                    "grad_norm": gnorm}
 
@@ -135,6 +158,12 @@ def adamw_update_(cfg: AdamWConfig, grads: List[Optional[torch.Tensor]],
     reference to the gradients.  The parameter and moment tensors keep
     their identity: the returned state holds the same ``mu`` and ``nu``
     trees, and ``params`` is updated where it lies."""
+    with sharded_scope(params, grads):
+        return _adamw_update_(cfg, grads, state, params)
+
+
+def _adamw_update_(cfg: AdamWConfig, grads: List[Optional[torch.Tensor]],
+                   state: AdamWState, params: Any) -> Tuple[AdamWState, dict]:
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
@@ -145,7 +174,7 @@ def adamw_update_(cfg: AdamWConfig, grads: List[Optional[torch.Tensor]],
     for i, (p, m, v) in enumerate(zip(tree_leaves(params),
                                       tree_leaves(state.mu),
                                       tree_leaves(state.nu))):
-        g = grads[i].float().contiguous()            # may be written
+        g = _like(grads[i].float(), m).contiguous()  # may be written
         grads[i] = None
         g.mul_(scale.to(g.dtype))                    # clip_by_global_norm
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -156,10 +185,13 @@ def adamw_update_(cfg: AdamWConfig, grads: List[Optional[torch.Tensor]],
         denom.sqrt_().add_(cfg.eps)
         step.div_(denom)
         del denom
+        pm = _like(p, m)                             # the moments' layout
         if p.dim() >= 2:                             # decay matrices only
-            step.add_(cfg.weight_decay * p.float())
+            step.add_(cfg.weight_decay * pm.float())
         step.mul_(lr)                                # lr · step
-        if p.dtype == torch.float32:
+        if pm is not p:          # updated in the moments' layout, then back
+            p.copy_(_like((pm.float() - step).to(p.dtype), p))
+        elif p.dtype == torch.float32:
             p.sub_(step)
         else:
             p.copy_((p.float() - step).to(p.dtype))

@@ -17,7 +17,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.train.optimizer import AdamWState, adamw_init
+from repro_torch.train.optimizer import AdamWState, adamw_init, tree_map
 
 
 class TrainState(NamedTuple):
@@ -34,6 +34,51 @@ def init_train_state(params: Any, rng: torch.Tensor, data_state: Any
         step=torch.zeros((), dtype=torch.int32),
         params=params,
         opt=adamw_init(params),
+        rng=rng,
+        data_state=data_state,
+    )
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_state_struct(param_struct: Any, data_state_struct: Any
+                       ) -> TrainState:
+    """The ``TrainState`` of ``param_struct`` (``Model.param_struct()``) as
+    ``meta`` tensors: the dry-run's and the sharding rules' input."""
+    def moment(p):
+        return _meta(p.shape, torch.float32)
+
+    return TrainState(
+        step=_meta((), torch.int32),
+        params=param_struct,
+        opt=AdamWState(_meta((), torch.int32), tree_map(moment, param_struct),
+                       tree_map(moment, param_struct)),
+        rng=_meta((2,), torch.uint32),
+        data_state=data_state_struct,
+    )
+
+
+def init_sharded_train_state(params: Any, shardings: "TrainState",
+                             rng: torch.Tensor, data_state: Any
+                             ) -> TrainState:
+    """A ``TrainState`` laid out by ``shardings`` (a ``TrainState`` of
+    ``NamedSharding``: ``dist.sharding.train_state_shardings``): ``params``
+    (the global values, the same on every rank, or ``DTensor`` leaves) are
+    placed by ``shardings.params``, the zero moments are made in
+    ``shardings.opt.mu``'s layout, each rank allocating its own box only;
+    ``step``, ``count``, ``rng`` and the data cursor stay on the host."""
+    from repro_torch.core.resharding import reshard_tree, zeros_onto
+
+    params = reshard_tree(params, shardings.params)
+    f32 = tree_map(lambda p: _meta(p.shape, torch.float32), params)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32),
+        params=params,
+        opt=AdamWState(torch.zeros((), dtype=torch.int32),
+                       zeros_onto(f32, shardings.opt.mu),
+                       zeros_onto(f32, shardings.opt.nu)),
         rng=rng,
         data_state=data_state,
     )
@@ -77,6 +122,8 @@ def prng_key(seed: int) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` on a uint32[2] key, on the host:
     the key hashes the counter ``(0, data)``."""
-    k = key.detach().cpu().numpy().astype(np.uint32)
-    y0, y1 = threefry2x32(k, 0, int(data) & 0xFFFFFFFF)
-    return torch.from_numpy(np.concatenate([y0, y1]).astype(np.uint32))
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():      # host values, even inside a trace
+        k = key.detach().cpu().numpy().astype(np.uint32)
+        y0, y1 = threefry2x32(k, 0, int(data) & 0xFFFFFFFF)
+        return torch.from_numpy(np.concatenate([y0, y1]).astype(np.uint32))

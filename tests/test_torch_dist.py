@@ -422,6 +422,24 @@ def test_chip_smoke_rehearses_phase_13_on_cpu():
     assert '"ok"' not in out.stdout
 
 
+def test_decode_hold_measures_shift_free_kl_and_dtype_spacing():
+    """Phase 13's decode hold: ``kl_div`` is 0 for equal rows and for rows
+    that differ by a constant (a softmax ignores a shared offset) and
+    grows with a change of the row's shape; ``_ulp`` is the dtype's
+    spacing at a value (bf16 4 at 550, the sparse update's logits)."""
+    from repro_torch.launch.meshckpt import _ulp, kl_div
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 1, 64))
+                         ).float()
+    assert kl_div(x, x) == 0.0
+    assert abs(kl_div(x, x + 550.0)) < 1e-9
+    small, large = kl_div(x, x * 1.01), kl_div(x, x * 2.0)
+    assert 0.0 < small < large
+    assert _ulp(550.0, torch.bfloat16) == 4.0
+    assert _ulp(-3.0, torch.bfloat16) == 2.0 ** -6
+    assert _ulp(1.0, torch.float32) == 2.0 ** -23
+    assert _ulp(0.0, torch.float32) > 0.0
+
+
 # --------------------------------------------------------------------------- #
 # deploy: train on (2, 2), serve on (1, 4)
 # --------------------------------------------------------------------------- #

@@ -1194,7 +1194,49 @@ def test_two_ranks_on_one_card_store_shard_locally_and_restore(tmp_path):
     for s in src:
         assert s["dirty_blocks"] == s["expected_dirty"]
         assert s["launches"] == s["designed_launches"]
-        assert set(s["gloo_cuda"]) == {"all_reduce", "broadcast",
-                                       "all_gather"}
+        assert set(s["gloo_cuda"]) == {
+            "all_reduce", "broadcast", "all_gather",
+            "all_gather_into_tensor", "reduce_scatter_tensor",
+            "all_to_all_single"}
     assert all(r["restarted"] and r["placements_kept"] for r in got)
     assert compare(src, got) > 0
+
+
+@pytest.mark.gpu
+def test_dtensor_forward_on_a_one_rank_mesh_at_full_width_equals_plain():
+    """tinyllama-1.1b at full width (22 layers, bf16 compute, flash) on a
+    one-rank (1, 1) mesh: the forward on ``DTensor`` parameters and
+    tokens equals the forward on the plain tensors bit for bit, and
+    launches the flash kernel once per layer, on the local heads (a
+    ``DTensor`` never reaches the launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_arch
+    from repro_torch.core.resharding import reshard_tree
+    from repro_torch.dist.context import use_mesh
+    from repro_torch.dist.sharding import batch_sharding, param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.zoo import build_model
+
+    os.environ["REPRO_ATTN_IMPL"] = "flash"
+    try:
+        model = build_model(get_arch("tinyllama-1.1b"))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.randint(0, model.cfg.vocab_size, (2, 256),
+                             generator=torch.Generator().manual_seed(1),
+                             dtype=torch.int32).cuda()
+        with torch.no_grad():
+            want, _ = model.forward(params, {"tokens": toks})
+            mesh = make_host_mesh("cuda")
+            sharded = reshard_tree(params,
+                                   param_shardings(mesh, model.param_struct()))
+            dtoks = reshard_tree({"t": toks},
+                                 {"t": batch_sharding(mesh, 2)})["t"]
+            ops.reset_launch_counts()
+            with use_mesh(mesh):
+                got, _ = model.forward(sharded, {"tokens": dtoks})
+            torch.cuda.synchronize()
+        assert ops.launch_counts()["flashattn"] == model.cfg.n_layers
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        os.environ.pop("REPRO_ATTN_IMPL", None)

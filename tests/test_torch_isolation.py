@@ -264,6 +264,49 @@ def test_mesh_store_and_restore_run_without_jax_in_every_worker(tmp_path):
     assert compare(*load) > 0
 
 
+#: every module this slice added, imported with jax and the reference
+#: package unimportable; then the calibration count and a sharded
+#: forward on a one-process mesh
+_NEW_MODULES = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+for name in ("repro_torch.roofline", "repro_torch.roofline.hw",
+             "repro_torch.roofline.analytic", "repro_torch.roofline.analyze",
+             "repro_torch.roofline.calibrate",
+             "repro_torch.roofline.perf_loop", "repro_torch.roofline.report",
+             "repro_torch.launch.dryrun"):
+    importlib.import_module(name)
+import torch
+from repro_torch.roofline.calibrate import compiled_flops
+assert compiled_flops(False) > 0
+from repro_torch.configs import get_arch
+from repro_torch.core.resharding import reshard_tree
+from repro_torch.dist.context import use_mesh
+from repro_torch.dist.sharding import batch_sharding, param_shardings
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.zoo import build_model
+m = build_model(get_arch("tinyllama-1.1b").reduced())
+p = m.init(torch.Generator().manual_seed(0))
+t = torch.zeros((2, 16), dtype=torch.int32)
+mesh = make_host_mesh()
+dp = reshard_tree(p, param_shardings(mesh, m.param_struct()))
+dt = reshard_tree({"tokens": t}, {"tokens": batch_sharding(mesh, 2)})
+with use_mesh(mesh):
+    got, _ = m.forward(dp, dt)
+assert torch.equal(got.full_tensor(), m.forward(p, {"tokens": t})[0])
+print("new-modules-ok")
+"""
+
+
+def test_new_modules_import_and_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "new-modules-ok" in out.stdout
+
+
 def test_no_module_of_the_port_imports_jax_or_repro():
     """Every import statement in src/repro_torch, lazy ones included."""
     bad = []
@@ -279,7 +322,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
             "core/resharding.py", "chaos/scenarios.py", "chaos/runner.py",
             "ft/elastic.py", "ft/straggler.py", "tools/chkls.py",
             "tools/chktrace.py", "dist/context.py", "dist/sharding.py",
-            "dist/comm.py", "launch/mesh.py", "launch/meshckpt.py"} <= scanned
+            "dist/comm.py", "launch/mesh.py", "launch/meshckpt.py",
+            "launch/dryrun.py", "roofline/hw.py", "roofline/analytic.py",
+            "roofline/analyze.py", "roofline/calibrate.py",
+            "roofline/perf_loop.py", "roofline/report.py"} <= scanned
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
