@@ -114,10 +114,12 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    restores it into zeros on the card, bit-exact; a newer sharded id that
    lost a shard file makes the walk fall back to it and say so.  Last,
    the supervised kill: ``launch.train --supervise`` workers train
-   tinyllama-1.1b at full width (22 layers, flash attention, each FULL
-   kept until the next commits) and are killed at step 8; the restart
-   resumes from step 6, once, and ends at step 12, and its flash launches
-   (written by the worker) must be two per layer and step it trained.
+   tinyllama-1.1b at its widths and ``SUPERVISED_LAYERS`` (4) of its 22
+   layers (flash attention, each FULL kept until the next commits; the
+   depth cut for the time phase 14 takes) and are killed at step 8; the
+   restart resumes from step 6, once, and ends at step 12, and its flash
+   launches (written by the worker) must be two per layer and step it
+   trained.
 
 9. Checkpointed MoE training at full width: granite-moe-3b-a800m
    (hf:ibm-granite/granite-3.0-1b-a400m-base: d_model 1536, 24 heads / 8
@@ -209,14 +211,38 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    one sharded step's collectives must be all-reduces and none an
    all-gather of a cache leaf.
 
+14. Every example of the port, as a user runs it: one child process
+   (torch imported once) runs the seven ``examples/torch_*.py`` through
+   ``runpy`` with their own argv and ``--device cuda``, each into its own
+   directory: the quickstart twice (done at step 50, then the restart),
+   the differential demo (a DIFF, a promoted FULL, an exact restore), the
+   resilient server (resumed at pos 22 without prefill, the continuation
+   equal), the clause example twice (the restart from step 30; restored
+   into zeros on the card, its params within the clause's ``max_error``
+   of the stored ones, its moments the stored ones cast to bf16 and back
+   bit for bit, ``step`` exact, and its last report's kind, bytes and
+   dirty ratio those of a CPU run), the portability example (x0 = 20 and
+   the restart on FTI, SCR and VeloC, every line as a CPU run's), the
+   telemetry example (the store's span holds Plan, Pack, Place and
+   Commit, one store counted, ``/readyz`` 503 then 200) and the
+   checkpointed training at ~100M parameters with DIFF stores and
+   ``REPRO_ATTN_IMPL=flash`` (the fault at step 54, the restart, the end
+   at step 60).  After each program a line gives its kernel launches,
+   which must equal the counts reckoned from the code
+   (``EXAMPLE_LAUNCHES``).
+
 The last lines are the card's name and power limit (``nvidia-smi``), one
 JSON object with the kernels' numbers, and ``{"ok": true, "device": ...}``.
 
-``--device cpu`` (with ``--width-div``/``--block-bytes`` to shrink it)
-rehearses phases 3, 5, 6, 7, 8, 9, 10, 11 and 12 on the CPU with the
-plain versions (phases 5, 7, 9, 10, 11, 12 and 8's supervised kill on a
-reduced config) and prints no result; ``--device cpu --mesh-only``
-rehearses phase 13 alone, on four gloo processes at the reduced config.
+``--phases`` runs some phases (the build always runs on the card) and
+prints no result; ``--workdir`` moves every phase's checkpoints out of
+``build/``, so two runs at once do not share them.  ``--device cpu``
+(with ``--width-div``/``--block-bytes`` to shrink it) rehearses phases 3,
+5, 6, 7, 8, 9, 10, 11, 12 and 14 on the CPU with the plain versions
+(phases 5, 7, 9, 10, 11, 12, 14's training and 8's supervised kill on a
+reduced config) and prints no result; ``--device cpu --phases 13``
+rehearses phase 13, on four gloo processes at the reduced config.  The
+rehearsal and every process it starts run on ``CPU_THREADS`` threads.
 """
 from __future__ import annotations
 
@@ -234,10 +260,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
-TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
-OBJ_DIR = ROOT / "build" / "chip_smoke_objstore"
-SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+#: each phase's directory under ``--workdir``
+CKPT_DIR = "chip_smoke_ckpt"
+TRAIN_DIR = "chip_smoke_train"
+OBJ_DIR = "chip_smoke_objstore"
+SERVE_DIR = "chip_smoke_serve"
 
 # H100 SXM rates the bounds divide by, at the card's maximum SM clock of
 # 1.98 GHz x 132 SMs.  HBM: NVIDIA's data sheet.  Integer: the data sheet
@@ -283,6 +310,11 @@ MOE_LAYERS = 8
 #: with all 62 the script took 985.1 s of its 1,200 on an H100 host, and
 #: host-bound phases run up to 1.25x slower on some hosts
 MLA_LAYERS = 16
+#: the depth of phase 8's supervised kill workers, cut from tinyllama's 22
+#: for the time phase 14 takes: at 22 (four FULLs of a 13.2 GB TrainState
+#: and a restore) it took 221-234 s, and with phase 14 the script took
+#: 1,189.0 s of its 1,200 on an H100 host
+SUPERVISED_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -381,6 +413,7 @@ def main_path(torch, args, device, ops):
     from repro_torch.telemetry import trace as ttrace
 
     bb = args.block_bytes
+    ckpt_dir = args.workdir / CKPT_DIR
     gen = torch.Generator(device=device).manual_seed(SEED)
     t0 = time.time()
     state = tinyllama_state(torch, args.layers, args.width_div, device, gen)
@@ -394,8 +427,8 @@ def main_path(torch, args, device, ops):
         f"{total_bytes / 1e9:.2f} GB on {device}, {total_blocks:,} blocks of "
         f"{bb} B, made in {time.time() - t0:.1f} s")
 
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    cfg = CheckpointConfig(dir=str(CKPT_DIR), backend="fti", block_bytes=bb,
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = CheckpointConfig(dir=str(ckpt_dir), backend="fti", block_bytes=bb,
                            dedicated_thread=True, objstore=False)
     p = state["params"]
     row_bytes = p["embed"].shape[1] * p["embed"].element_size()
@@ -489,7 +522,7 @@ def main_path(torch, args, device, ops):
         fail("launch counts do not match the leaves hashed and unpacked "
              "and the DIFF stores packed")
     compare_replay(torch, cfg, named, device)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     return state, ids2, ids4, launches, restore_s
 
 
@@ -1176,10 +1209,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
 #: tile of 128 (S and Sk must each divide by it or be at most 128): 8,192
 #: decoder tokens a step, as phase 5's 4 × 2048
 ENCDEC_ARCH = "whisper-small"
-ENCDEC_DIR = ROOT / "build" / "chip_smoke_encdec"
+ENCDEC_DIR = "chip_smoke_encdec"
 ENCDEC_BATCH, ENCDEC_SEQ = 16, 512
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_DIR = ROOT / "build" / "chip_smoke_moe"
+MOE_DIR = "chip_smoke_moe"
 #: record_function ranges of models/moe.py whose device time phase 9's
 #: profile reports
 MOE_RANGES = ("moe.dispatch_einsum", "moe.combine_einsum")
@@ -1579,6 +1612,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     from repro_torch.core.protect import flatten_named, unflatten_named
     from repro_torch.telemetry import trace as ttrace
 
+    obj_dir = args.workdir / OBJ_DIR
     bb = args.block_bytes
     on_card = device.type == "cuda"
     rate = cdc_rate(256 << 20 if on_card else 8 << 20)
@@ -1634,14 +1668,14 @@ def objstore_path(torch, args, device, ops) -> dict:
             fail(f"{cfg.dir}: the restart found no checkpoint")
         return got, seen["meta"], time.time() - t
 
-    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     out = {"depth": depth, "cdc_mb_s": rate}
     ttrace.reset()
     ttrace.enable()
     ops.reset_launch_counts()
 
     # 6a: FULL and DIFF at L4 through the object store, CP-dedicated thread
-    cfg = CheckpointConfig(dir=str(OBJ_DIR / "l4"), backend="fti",
+    cfg = CheckpointConfig(dir=str(obj_dir / "l4"), backend="fti",
                            block_bytes=bb)
     reports, uploaded = [], {}
     ctx = CheckpointContext(cfg)
@@ -1686,7 +1720,7 @@ def objstore_path(torch, args, device, ops) -> dict:
                l4_pack_s={i: stages.get((i, "pack"), 0.0) for i in by_id},
                uploaded=(up1, up2))
 
-    wipe_dirs(OBJ_DIR / "l4")
+    wipe_dirs(obj_dir / "l4")
     n0 = ops.launch_counts()["diffunpack"]
     restored, meta, out["l4_restore_s"] = timed_load(cfg)
     if meta.get("recovered_via") != "objstore":
@@ -1699,11 +1733,11 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"(recovered_via={meta['recovered_via']}, DIFF replayed with "
         f"{replayed} diffunpack launches)")
     del restored
-    shutil.rmtree(OBJ_DIR / "l4", ignore_errors=True)
+    shutil.rmtree(obj_dir / "l4", ignore_errors=True)
 
     # 6b: an incremental store in two parts, then a DIFF with the exact
     # dirty-block count, then a restore
-    cfg = CheckpointConfig(dir=str(OBJ_DIR / "inc"), backend="fti",
+    cfg = CheckpointConfig(dir=str(obj_dir / "inc"), backend="fti",
                            block_bytes=bb)
     reports = []
     ctx = CheckpointContext(cfg).observe_store_reports(reports.append)
@@ -1734,10 +1768,10 @@ def objstore_path(torch, args, device, ops) -> dict:
         f"total_s {by_id[1].seconds:.2f}), then DIFF with {got} dirty blocks "
         f"(expected {want_dirty(ids)}); restore bit-exact in "
         f"{out['inc_restore_s']:.2f} s")
-    shutil.rmtree(OBJ_DIR / "inc", ignore_errors=True)
+    shutil.rmtree(obj_dir / "inc", ignore_errors=True)
 
     # 6c: one SCR FULL store and restart
-    cfg = CheckpointConfig(dir=str(OBJ_DIR / "scr"), backend="scr",
+    cfg = CheckpointConfig(dir=str(obj_dir / "scr"), backend="scr",
                            block_bytes=bb)
     ctx = CheckpointContext(cfg)
     t = time.time()
@@ -1749,7 +1783,7 @@ def objstore_path(torch, args, device, ops) -> dict:
     del restored
     log(f"[obj] SCR FULL store {rep.bytes_payload} B in {scr_s:.2f} s "
         f"(file mode); restart bit-exact in {out['scr_restore_s']:.2f} s")
-    shutil.rmtree(OBJ_DIR, ignore_errors=True)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     sync(torch, device)
     out["launches"] = ops.launch_counts()
     ttrace.disable()
@@ -1984,6 +2018,7 @@ def serve_path(torch, args, device, ops) -> dict:
     from repro_torch.serve.engine import ServingEngine, WeightsHandle
     from repro_torch.train.step import use_deterministic_algorithms
 
+    serve_dir = args.workdir / SERVE_DIR
     on_card = device.type == "cuda"
     bb = args.block_bytes
     cfg = get_arch("tinyllama-1.1b")
@@ -2008,14 +2043,14 @@ def serve_path(torch, args, device, ops) -> dict:
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.head_dim}, "
         f"{cfg.compute_dtype} compute; batch {batch}, prompts of {prompt} "
         f"tokens, max_len {max_len}: KV cache {cache_bytes / 1e6:.1f} MB")
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
-    SERVE_DIR.mkdir(parents=True)
-    log(f"[serve] free disk under {SERVE_DIR.parent}: "
-        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_dir.mkdir(parents=True)
+    log(f"[serve] free disk under {serve_dir.parent}: "
+        f"{shutil.disk_usage(serve_dir).free / 1e9:.1f} GB")
     ops.reset_launch_counts()
     run = serve_resume(torch, device, ops, model, handle, prompts,
                        (max_len, gen_n, every, fault), bb, "serve",
-                       SERVE_DIR)
+                       serve_dir)
     del handle, run["st_prefill"]
 
     # rolling deploy at DEPLOY_LAYERS of depth: publish v1, roll it;
@@ -2028,19 +2063,19 @@ def serve_path(torch, args, device, ops) -> dict:
         objstore_cdc_min_bytes=1024, objstore_cdc_avg_bytes=4096,
         objstore_cdc_max_bytes=16384, objstore_chunk_bytes=4096)
     pub = CheckpointContext(CheckpointConfig(
-        dir=str(SERVE_DIR / "pub"), backend="fti", block_bytes=bb, **pub_kw))
+        dir=str(serve_dir / "pub"), backend="fti", block_bytes=bb, **pub_kw))
     pub_reports = []
     pub.observe_store_reports(pub_reports.append)
     v = model.init(torch.Generator(device=device).manual_seed(SEED + 9))
     other = WeightsHandle(params=model.init(
         torch.Generator(device=device).manual_seed(SEED + 10)))
-    replicas = [Replica(name=f"r{i}", cache_root=str(SERVE_DIR / f"cache-{i}"),
+    replicas = [Replica(name=f"r{i}", cache_root=str(serve_dir / f"cache-{i}"),
                         prefix="params",
                         engine=ServingEngine(model, other, batch, max_len))
                 for i in range(2)]
     del other
     dep = FleetDeployer(make_object_store(
-        "file:" + str(SERVE_DIR / "pub" / "objstore")), replicas)
+        "file:" + str(serve_dir / "pub" / "objstore")), replicas)
     published = {}
 
     def publish(entry):
@@ -2104,7 +2139,7 @@ def serve_path(torch, args, device, ops) -> dict:
     ratio2, _ = rollout(2)
     pub.shutdown()
     log(f"[serve] free disk after both rollouts: "
-        f"{shutil.disk_usage(SERVE_DIR).free / 1e9:.1f} GB; "
+        f"{shutil.disk_usage(serve_dir).free / 1e9:.1f} GB; "
         f"max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9 if on_card else 0:.2f} GB")
     if ratio2 >= 0.30:
@@ -2127,7 +2162,7 @@ def serve_path(torch, args, device, ops) -> dict:
     del replicas, dep, direct, r0, v, published
     sync(torch, device)
     launches = ops.launch_counts()
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    shutil.rmtree(serve_dir, ignore_errors=True)
     if on_card:
         torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
@@ -2159,7 +2194,7 @@ def serve_launches(run: dict) -> dict:
 # --------------------------------------------------------------------------- #
 
 MLA_ARCH = "minicpm3-4b"
-MLA_DIR = ROOT / "build" / "chip_smoke_mla"
+MLA_DIR = "chip_smoke_mla"
 
 
 def served_phase(torch, args, device, ops, arch: str, tag: str, root: Path,
@@ -2239,7 +2274,8 @@ def mla_path(torch, args, device, ops) -> dict:
                 f"{m.qk_rope_dim}, v_head {m.v_head_dim}")
 
     cfg, _, launches = served_phase(torch, args, device, ops, MLA_ARCH,
-                                    "mla", MLA_DIR, SEED + 12, 10, widths,
+                                    "mla", args.workdir / MLA_DIR, SEED + 12,
+                                    10, widths,
                                     "latent cache", layers=MLA_LAYERS)
     return {"launches": launches, "layers": cfg.n_layers}
 
@@ -2248,7 +2284,7 @@ def mla_path(torch, args, device, ops) -> dict:
 # --------------------------------------------------------------------------- #
 
 SSM_ARCH = "rwkv6-3b"
-SSM_DIR = ROOT / "build" / "chip_smoke_ssm"
+SSM_DIR = "chip_smoke_ssm"
 
 
 def ssm_path(torch, args, device, ops) -> dict:
@@ -2262,7 +2298,8 @@ def ssm_path(torch, args, device, ops) -> dict:
             f"{cfg.ssm.head_dim}"
 
     cfg, run, launches = served_phase(torch, args, device, ops, SSM_ARCH,
-                                      "ssm", SSM_DIR, SEED + 14, 11, widths,
+                                      "ssm", args.workdir / SSM_DIR,
+                                      SEED + 14, 11, widths,
                                       "recurrent state (whatever max_len)")
     cadence = run["stores"] - 1
     if run["promoted"] != cadence or run["links"] or run["replayed"]:
@@ -2278,7 +2315,7 @@ def ssm_path(torch, args, device, ops) -> dict:
 # phase 8: the chaos matrix, elastic rescale and a sharded container
 # --------------------------------------------------------------------------- #
 
-CHAOS_DIR = ROOT / "build" / "chip_smoke_chaos"
+CHAOS_DIR = "chip_smoke_chaos"
 #: new world sizes of the elastic rescale; 3 splits the rows raggedly
 RESCALE_WORLDS = (2, 3)
 SHARDS = 4
@@ -2298,7 +2335,7 @@ def chaos_path(torch, args, device, ops) -> dict:
     (a), and the numbers printed}."""
     import warnings
 
-    from repro_torch.chaos.scenarios import run_matrix, run_scenario
+    from repro_torch.chaos.scenarios import run_matrix
     from repro_torch.core import manifest as mf
     from repro_torch.core.context import CheckpointConfig, CheckpointContext
     from repro_torch.core.formats import numpy_to_tensor, tensor_to_numpy
@@ -2310,14 +2347,15 @@ def chaos_path(torch, args, device, ops) -> dict:
 
     on_card = device.type == "cuda"
     out: dict = {}
-    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    chaos_dir = args.workdir / CHAOS_DIR
+    shutil.rmtree(chaos_dir, ignore_errors=True)
 
     # (a) the matrix: the CPU run first, then the device's with the hash
     # launches counted from zero; the phase counts the leaves on the card
     # of every store planned by a backend that keeps digests (FTI)
     t = time.time()
     if on_card:
-        cpu = run_matrix(str(CHAOS_DIR / "cpu"), device="cpu")
+        cpu = run_matrix(str(chaos_dir / "cpu"), device="cpu")
     planned = {"stores": 0, "card_leaves": 0}
     real_plan = CheckpointPipeline.plan
 
@@ -2333,7 +2371,7 @@ def chaos_path(torch, args, device, ops) -> dict:
     ops.reset_launch_counts()
     CheckpointPipeline.plan = counting_plan
     try:
-        report = run_matrix(str(CHAOS_DIR / "matrix"), device=device)
+        report = run_matrix(str(chaos_dir / "matrix"), device=device)
     finally:
         CheckpointPipeline.plan = real_plan
     sync(torch, device)
@@ -2367,7 +2405,7 @@ def chaos_path(torch, args, device, ops) -> dict:
     if on_card and out["launches"] != want:
         fail("phase 8 launch counts do not match the card leaves of the "
              "matrix's stores")
-    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    shutil.rmtree(chaos_dir, ignore_errors=True)
 
     # the state of (b) and (c): tinyllama-1.1b's parameters at full width
     n_layers = 22 if on_card else args.layers
@@ -2383,7 +2421,7 @@ def chaos_path(torch, args, device, ops) -> dict:
     # (b) elastic rescale: 4 rank files of axis-0 slices in a committed
     # checkpoint, restored for new worlds of 2 and 3 ranks; a 0-d leaf
     # travels as one row
-    root = str(CHAOS_DIR / "elastic")
+    root = str(chaos_dir / "elastic")
     rows = {k: (v.reshape(1) if v.dim() == 0 else v) for k, v in named.items()}
     t = time.time()
     d = mf.begin(root, 1)
@@ -2427,7 +2465,7 @@ def chaos_path(torch, args, device, ops) -> dict:
 
     # (c) a shard-local FULL through the directives: 4 host chunks per 2-D
     # leaf, 1-D and 0-d leaves as data/, shard_writers 4, FTI level 1
-    cfg = CheckpointConfig(dir=str(CHAOS_DIR / "sharded"), backend="fti",
+    cfg = CheckpointConfig(dir=str(chaos_dir / "sharded"), backend="fti",
                            dedicated_thread=False, block_bytes=args.block_bytes)
     host = {k: tensor_to_numpy(v) for k, v in named.items() if v.dim() == 2}
 
@@ -2501,7 +2539,7 @@ def chaos_path(torch, args, device, ops) -> dict:
              f"did not say why it fell back ({said})")
     log(f"[chaos] shard file {lost.name} of id 2 deleted: the walk fell back "
         f"to id 1 and said: {said[0]}")
-    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    shutil.rmtree(chaos_dir, ignore_errors=True)
     del state, named, rows, host
     if on_card:
         torch.cuda.empty_cache()
@@ -2510,13 +2548,17 @@ def chaos_path(torch, args, device, ops) -> dict:
     # at full width on a card, the reduced config here.  The restarted
     # worker writes its launches: flash runs forward and in the remat
     # recompute of every layer, each of the 6 steps it trains
+    from repro_torch.chaos.scenarios import supervised_kill
     from repro_torch.configs import get_arch
     cfg = get_arch("tinyllama-1.1b")
+    layers = None
     if not on_card:
         cfg = cfg.reduced()
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=SUPERVISED_LAYERS)
+        layers = SUPERVISED_LAYERS
     t = time.time()
-    r = run_scenario("supervised-kill", "fti", str(CHAOS_DIR / "sup"),
-                     device=device)
+    r = supervised_kill(str(chaos_dir / "sup"), "fti", device, layers=layers)
     out["supervised_s"] = time.time() - t
     out["mttr_s"] = r.mttr_s
     out["supervised_layers"] = cfg.n_layers
@@ -2537,7 +2579,7 @@ def chaos_path(torch, args, device, ops) -> dict:
         f"off, finished at step 12, MTBF feed deaths 1; wall "
         f"{out['supervised_s']:.1f} s, MTTR {r.mttr_s:.2f} s; the restarted "
         f"worker's launches {got[0]} (flashattn expected {want_flash})")
-    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    shutil.rmtree(chaos_dir, ignore_errors=True)
     return out
 
 # --------------------------------------------------------------------------- #
@@ -2547,7 +2589,7 @@ def chaos_path(torch, args, device, ops) -> dict:
 # --------------------------------------------------------------------------- #
 
 MESH_ARCH = "tinyllama-1.1b"
-MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_DIR = "chip_smoke_mesh"
 #: (data, model) of the storing mesh and of the two restoring ones
 MESH_A, MESH_B, MESH_C = "2,2", "1,4", "2,1"
 #: seconds one world of workers may take
@@ -2626,8 +2668,9 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
     from repro_torch.core.formats import CHK5Reader
     from repro_torch.launch.meshckpt import compare
 
-    shutil.rmtree(MESH_DIR, ignore_errors=True)
-    ck, out = str(MESH_DIR / "ck"), str(MESH_DIR / "out")
+    mesh_dir = args.workdir / MESH_DIR
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    ck, out = str(mesh_dir / "ck"), str(mesh_dir / "out")
     common = ["--device", device.type, "--arch", MESH_ARCH, "--dir", ck,
               "--out", out, "--seed", str(SEED + 21)]
     train = ["--train-steps", "2", "--train-seed", str(SEED),
@@ -2744,7 +2787,7 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
     log(f"[mesh] a 4-process (2, 2) store of two sharded train steps' "
         f"parameters restored bit-exact onto (1, 4) on 4 processes and "
         f"(2, 1) on 2 on {device.type}; store world {store_s:.1f} s")
-    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    shutil.rmtree(mesh_dir, ignore_errors=True)
     return {"launches": total, "by_rank": by_rank}
 
 
@@ -2861,6 +2904,316 @@ def check_mesh_decode(got: list, device) -> None:
                      "all-reduces")
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: every example of the port, run as a user runs it
+# --------------------------------------------------------------------------- #
+
+EXAMPLES_DIR = "chip_smoke_examples"
+#: phase 14's programs in order: (file in examples/, its argv on the card,
+#: runs).  A second run of the same directory takes the restart path.
+EXAMPLES = (
+    ("torch_quickstart.py", (), 2),
+    ("torch_differential_demo.py", (), 1),
+    ("torch_serve_resilient.py", (), 1),
+    ("torch_clause_protection.py", (), 2),
+    ("torch_multibackend_portability.py", (), 1),
+    ("torch_telemetry_trace.py", (), 1),
+    ("torch_train_checkpointed.py", ("--hundred-m", "--differential"), 1),
+)
+#: the CPU rehearsal's argv where it differs: the reduced config, 20 steps
+EXAMPLES_CPU_ARGV = {
+    "torch_train_checkpointed.py": ("--differential", "--steps", "20")}
+#: the environment a program runs in besides the child's: the training
+#: example takes the flash path, as phase 5 and the chaos scenarios do
+EXAMPLES_ENV = {"torch_train_checkpointed.py": {"REPRO_ATTN_IMPL": "flash"}}
+#: each program's kernel launches on the card over its runs, reckoned from
+#: the code (PERF.md §6): ``blockhash2`` once per card leaf of every
+#: store a diff-capable backend (FTI) plans, ``diffpack`` once per DIFF
+#: store, ``diffunpack`` once per replayed DIFF link, ``flashattn`` twice
+#: per layer and training step (forward and the remat's recompute)
+EXAMPLE_LAUNCHES = {
+    # 5 FULLs of w; the rerun restores and stores nothing
+    "torch_quickstart.py": {"blockhash2": 5},
+    # FULL, DIFF, promoted FULL of params; the restore reads the FULL
+    "torch_differential_demo.py": {"blockhash2": 3, "diffpack": 1},
+    # one FULL of k, v and last_token
+    "torch_serve_resilient.py": {"blockhash2": 3},
+    # 3 stores of w, m, v (the first promoted), 2 of them DIFFs; the
+    # restart replays both links of w
+    "torch_clause_protection.py": {"blockhash2": 9, "diffpack": 2,
+                                   "diffunpack": 2},
+    # 4 FULLs of x on FTI; SCR and VeloC keep no digests
+    "torch_multibackend_portability.py": {"blockhash2": 4},
+    # one FULL of w at L4
+    "torch_telemetry_trace.py": {"blockhash2": 1},
+    # 6 stores of 36 card leaves (AdamW dirties every block: each DIFF is
+    # promoted); 54 + 10 steps of 12 layers
+    "torch_train_checkpointed.py": {"blockhash2": 216, "flashattn": 1536},
+}
+#: the child's limit, its torch import and every program included
+EXAMPLES_TIMEOUT = 900
+
+
+def examples_path(torch, args, device, ops) -> dict:
+    """Phase 14.  One child process (torch imported once) runs every
+    example of the port through ``runpy`` with its own argv, and holds each
+    one's result (:func:`examples_child`).  → {"launches": summed over the
+    programs, "by_program": each program's}"""
+    root = args.workdir / EXAMPLES_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("OPENCHK_") and k != "REPRO_ATTN_IMPL"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.examples_child()")
+    r = subprocess.run([sys.executable, "-c", code, str(ROOT), str(root),
+                        device.type], env=env, timeout=EXAMPLES_TIMEOUT)
+    if r.returncode != 0:
+        fail(f"phase 14: the examples' process exited {r.returncode}")
+    by_program = json.loads((root / "launches.json").read_text())
+    shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(c[k] for c in by_program.values())
+             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
+    return {"launches": total, "by_program": by_program}
+
+
+def run_example(name: str, argv, env: dict) -> str:
+    """Run ``examples/<name>`` as ``__main__`` with ``argv`` in this
+    process → what it printed (echoed once it ends).  The environment it
+    ran in is put back, and the telemetry it switched on is switched off
+    and emptied, so the next program starts as in a process of its own."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.telemetry import metrics, trace
+
+    path = ROOT / "examples" / name
+    saved, saved_argv = dict(os.environ), sys.argv
+    os.environ.update(env)
+    sys.argv = [str(path), *argv]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.stdout.write(out.getvalue())
+        os.environ.clear()
+        os.environ.update(saved)
+        sys.argv = saved_argv
+        trace.disable()
+        trace.reset()
+        metrics.reset()
+    return out.getvalue()
+
+
+def expect_lines(name: str, out: str, *wanted: str) -> None:
+    for w in wanted:
+        if w not in out:
+            fail(f"phase 14: {name} did not print {w!r}")
+
+
+def hold_clause(torch, device, ck: Path, out_cpu: str, out: str) -> str:
+    """The clause example's checkpoint restored into zeros on ``device``:
+    params within the clause's ``max_error`` of the state its own ``update``
+    makes in 30 steps on the device, the moments equal to that state's cast
+    to bf16 and back, ``step`` exact; its last report as the CPU run's."""
+    import runpy
+
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+
+    mod = runpy.run_path(str(ROOT / "examples" / "torch_clause_protection.py"))
+    want = mod["init_state"](device)
+    for _ in range(30):
+        want = mod["update"](want)
+    ctx = CheckpointContext(CheckpointConfig(dir=str(ck),
+                                             dedicated_thread=False,
+                                             block_bytes=1024))
+    got = ctx.load(mod["init_state"](device))
+    ctx.shutdown()
+    if not ctx.restarted or int(got["step"]) != 30:
+        fail(f"phase 14: the clause checkpoint restored step "
+             f"{int(got['step'])}, not 30")
+    err = float((got["params"]["w"] - want["params"]["w"]).abs().max())
+    if err > 0.05:
+        fail(f"phase 14: restored params {err} from the stored ones, past "
+             "the clause's max_error 0.05")
+    for k in ("m", "v"):
+        cast = want["opt"][k].to(torch.bfloat16).float()
+        if got["opt"][k].device != device or \
+                not torch.equal(got["opt"][k], cast):
+            fail(f"phase 14: restored opt/{k} is not the stored one cast to "
+                 "bf16 and back")
+    last = [ln for ln in out.splitlines() if ln.startswith("last store:")]
+    last_cpu = [ln for ln in out_cpu.splitlines()
+                if ln.startswith("last store:")]
+    if not last or last != last_cpu:
+        fail(f"phase 14: the clause example's last report {last} is not "
+             f"the CPU run's {last_cpu}")
+    return (f"params within {err:.3g} of the stored (max_error 0.05), "
+            f"moments bf16-exact, step 30; {last[0]} as on the CPU")
+
+
+def hold_telemetry(out: str, trace_path: Path) -> str:
+    """The report's span is the store's, holding Pack, Place and Commit,
+    after the Plan span of its checkpoint id; the store counter is 1;
+    /readyz answers 503, then 200."""
+    from repro_torch.tools.chktrace import build_spans
+
+    m = re.search(r"StoreReport\.span_id=(\d+)", out)
+    if m is None:
+        fail("phase 14: the telemetry example printed no span_id")
+    spans = build_spans(json.loads(trace_path.read_text())["traceEvents"])
+    store = [s for s in spans
+             if s["args"].get("span_id") == int(m.group(1))
+             and s["name"] == "pipeline.store"]
+    if len(store) != 1:
+        fail(f"phase 14: no pipeline.store span has span_id {m.group(1)}")
+    store = store[0]
+    plans = [s for s in spans if s["name"] == "pipeline.plan"
+             and s["args"].get("ckpt_id") == store["args"].get("ckpt_id")
+             and s["ts"] + s["dur_us"] <= store["ts"]]
+    names = {c["name"] for c in store["children"]}
+    tail = {f"pipeline.{s}" for s in ("pack", "place", "commit")}
+    if not plans or not tail <= names:
+        fail(f"phase 14: store span {m.group(1)} holds {sorted(names)} "
+             f"after {len(plans)} plan span(s) of its id")
+    expect_lines("torch_telemetry_trace.py", out,
+                 "openchk_store_total{'kind': 'FULL', 'level': '4'} = 1.0",
+                 "/readyz while ready=False: HTTP 503",
+                 "/readyz while ready=True: HTTP 200")
+    return (f"span {m.group(1)} holds pack, place and commit after the "
+            "plan of its id; 1 store counted; /readyz 503 then 200")
+
+
+def examples_child() -> None:
+    """Phase 14's child: ``python -c ... <repo> <workdir> <device>``.  Runs
+    each of :data:`EXAMPLES` in turn (a second run takes the restart path),
+    prints each program's kernel launches, holds its result, and writes
+    the launches to ``<workdir>/launches.json``."""
+    root, device = Path(sys.argv[2]), sys.argv[3]
+    import torch
+
+    from repro_torch.kernels import ops
+
+    if device == "cpu":
+        torch.set_num_threads(CPU_THREADS)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    by_program = {}
+    for name, argv, runs in EXAMPLES:
+        if device == "cpu":
+            argv = EXAMPLES_CPU_ARGV.get(name, argv)
+        ck = root / name[:-3]
+        argv = [*argv, "--device", device, "--ckpt-dir", str(ck)]
+        t = time.time()
+        ops.reset_launch_counts()
+        outs = [run_example(name, argv, EXAMPLES_ENV.get(name, {}))
+                for _ in range(runs)]
+        launches = ops.launch_counts()
+        by_program[name] = launches
+        log(f"[examples] {name}: {runs} run(s) on {device}, "
+            f"{time.time() - t:.1f} s; launches " + ", ".join(
+                f"{k} {v}" for k, v in launches.items()))
+        if device == "cuda":
+            want = {k: EXAMPLE_LAUNCHES[name].get(k, 0) for k in launches}
+            if launches != want:
+                fail(f"phase 14: {name} launched {launches}, not the "
+                     f"{want} reckoned from the code")
+        if name == "torch_quickstart.py":
+            expect_lines(name, outs[0], "done at step 50, w[0]=5.00 on "
+                         f"{device}")
+            expect_lines(name, outs[1], "transparent restart: resuming from "
+                         "step 50", "done at step 50")
+            held = "done at step 50; the rerun resumed from step 50"
+        elif name == "torch_differential_demo.py":
+            expect_lines(name, outs[0], "id=2 DIFF", "promoted=True",
+                         f"replayed restore exact on {device}")
+            held = "a DIFF, a promoted FULL, the restore exact"
+        elif name == "torch_serve_resilient.py":
+            expect_lines(name, outs[0], "server 2 resumed at pos 22",
+                         "resumed continuation matches uninterrupted "
+                         f"generation on {device}")
+            held = "resumed at pos 22 without prefill; the continuation " \
+                "matches"
+        elif name == "torch_clause_protection.py":
+            expect_lines(name, outs[1], "transparent restart: resuming from "
+                         "step 30")
+            out_cpu = run_example(name, ["--device", "cpu", "--ckpt-dir",
+                                         str(root / "clause-cpu")], {})
+            held = hold_clause(torch, dev, ck, out_cpu, outs[0])
+        elif name == "torch_multibackend_portability.py":
+            out_cpu = run_example(name, ["--device", "cpu", "--ckpt-dir",
+                                         str(root / "port-cpu")], {})
+            lines = [ln for ln in outs[0].splitlines() if " x0=" in ln]
+            if len(lines) != 3 or any(
+                    "x0=20 restart-detected=True" not in ln for ln in lines):
+                fail(f"phase 14: portability printed {lines}")
+            if lines != [ln for ln in out_cpu.splitlines() if " x0=" in ln]:
+                fail("phase 14: the backends' x0, restart and stats differ "
+                     "from the CPU run's")
+            held = "x0=20 and the restart on fti, scr and veloc; stats as " \
+                "on the CPU"
+        elif name == "torch_telemetry_trace.py":
+            held = hold_telemetry(outs[0], ck / "trace.json")
+        else:
+            steps = 20 if device == "cpu" else 60
+            expect_lines(name, outs[0], "!! injected fault at step "
+                         f"{int(steps * 0.9)}", f"finished: step={steps} ",
+                         "restarted=True")
+            held = f"faulted at step {int(steps * 0.9)}, finished at " \
+                f"{steps} with restarted=True"
+        log(f"[examples] {name}: {held}")
+        shutil.rmtree(ck, ignore_errors=True)
+    (root / "launches.json").write_text(json.dumps(by_program))
+
+
+def build_kernels(build) -> dict:
+    """Phase 1: every source at once → blockhash2's SASS per u32 word."""
+    t = time.time()
+    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
+    logs = build.compile_all(sources)
+    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
+        f"{time.time() - t:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    per_word, n_ins, n_words = blockhash_ops_per_word(build)
+    log(f"[build] blockhash2 SASS: {n_ins} instructions for {n_words} u32 "
+        f"words in the full-block loop; per word: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in per_word.items()))
+    return per_word
+
+
+def parse_phases(text, on_card: bool) -> list:
+    """``--phases``: comma-separated phase numbers → the phases to run, in
+    order.  Default: every phase on the card, and on the CPU every phase
+    but 13 (which needs four processes; ``--phases 13`` runs it alone)."""
+    if text is None:
+        return [p for p in PHASES if on_card or p in CPU_PHASES]
+    try:
+        chosen = {int(x) for x in text.split(",") if x.strip()}
+    except ValueError:
+        fail(f"--phases takes phase numbers, got {text!r}")
+    allowed = PHASES if on_card else CPU_PHASES + (13,)
+    bad = sorted(chosen - set(allowed))
+    if bad or not chosen:
+        fail(f"--phases {text!r}: choose from {list(allowed)}")
+    if 4 in chosen and 3 not in chosen:
+        fail("phase 4 times phase 3's state: add phase 3")
+    return [p for p in PHASES if p in chosen]
+
+
+#: the phases after the build that ``--phases`` can choose; phases 2 and 4
+#: (the kernels against their plain versions, and their times) need a card
+PHASES = (2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+CPU_PHASES = (3, 5, 6, 7, 8, 9, 10, 11, 12, 14)
+#: the CPU rehearsal's threads, in this process and every one it starts:
+#: with more, a rehearsal beside other busy processes mostly waits
+CPU_THREADS = 4
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2872,16 +3225,26 @@ def main() -> None:
                     help="CPU rehearsal only: divide every width by this")
     ap.add_argument("--block-bytes", type=int, default=BLOCK_BYTES,
                     help="CPU rehearsal only: hash block size")
-    ap.add_argument("--mesh-only", action="store_true",
-                    help="CPU rehearsal only: phase 13 alone, on four gloo "
-                         "processes at the reduced config")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (2-14; the build "
+                         "always runs on the card); a run of some phases "
+                         "prints no result.  Default: all (on the CPU all "
+                         "but 13)")
+    ap.add_argument("--workdir", type=Path, default=ROOT / "build",
+                    help="where the phases write their checkpoints "
+                         "(default: build/ in the checkout)")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from a checkout of the repo")
+    on_card = args.device == "cuda"
+    phases = parse_phases(args.phases, on_card)
+    args.workdir = args.workdir.resolve()
     sys.path.insert(0, str(ROOT / "src"))
     # the fixed cuBLAS workspace of deterministic mode (phase 5), read when
     # cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if not on_card:                 # inherited by every process it starts
+        os.environ["OMP_NUM_THREADS"] = str(CPU_THREADS)
     import torch
 
     from repro_torch.kernels import blockhash as bh
@@ -2889,112 +3252,122 @@ def main() -> None:
     from repro_torch.kernels import diffpack as dp
     from repro_torch.kernels import flashattn as fa
 
-    if args.device == "cpu" and args.mesh_only:
-        mesh_path(torch, args, torch.device("cpu"), ops)
-        log("chip_smoke: CPU rehearsal of phase 13 passed (no kernel ran; "
-            "no result)")
-        return
-    if args.mesh_only:
-        fail("--mesh-only is for the CPU rehearsal")
-    if args.device == "cpu":
-        main_path(torch, args, torch.device("cpu"), ops)
-        training_path(torch, args, torch.device("cpu"), ops,
-                      "tinyllama-1.1b", "train", TRAIN_DIR)
-        objstore_path(torch, args, torch.device("cpu"), ops)
-        serve_path(torch, args, torch.device("cpu"), ops)
-        chaos_path(torch, args, torch.device("cpu"), ops)
-        training_path(torch, args, torch.device("cpu"), ops, MOE_ARCH, "moe",
-                      MOE_DIR, donate=True)
-        mla_path(torch, args, torch.device("cpu"), ops)
-        ssm_path(torch, args, torch.device("cpu"), ops)
-        training_path(torch, args, torch.device("cpu"), ops, ENCDEC_ARCH,
-                      "encdec", ENCDEC_DIR)
-        log("chip_smoke: CPU rehearsal of the main paths passed "
-            "(no kernel ran; no result)")
-        return
-    if args.width_div != 1 or args.block_bytes != BLOCK_BYTES:
+    t_start = time.time()
+
+    def cut(depth: str) -> str:          # the CPU runs the reduced configs
+        return f" ({depth})" if on_card else ""
+
+    def timed(what: str, fn, *a, **kw):
+        t = time.time()
+        out = fn(*a, **kw)
+        log(f"[phase] {what}: {time.time() - t:.1f} s")
+        return out
+
+    if not on_card:
+        torch.set_num_threads(CPU_THREADS)
+        device = torch.device("cpu")
+    elif args.width_div != 1 or args.block_bytes != BLOCK_BYTES:
         fail("--width-div and --block-bytes are for the CPU rehearsal")
-    if not torch.cuda.is_available():
+    elif not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
-    device = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    log(f"[env] {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False     # f32 products in f32
-    torch.backends.cudnn.allow_tf32 = False
-
-    t = t_start = time.time()
-    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
-    logs = build.compile_all(sources)
-    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
-        f"{time.time() - t:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
-
-    per_word, n_ins, n_words = blockhash_ops_per_word(build)
-    log(f"[build] blockhash2 SASS: {n_ins} instructions for {n_words} u32 "
-        f"words in the full-block loop; per word: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in per_word.items()))
-
-    t = time.time()
-    worst = check_kernels(torch, device, ops, ref, bh, dp)
-    worst["flashattn"] = check_flash(torch, device, ops, ref, fa)
-    log(f"[phase] kernel checks: {time.time() - t:.1f} s")
-    t = time.time()
-    state, ids2, ids4, launches, _ = main_path(torch, args, device, ops)
-    log(f"[phase] directive path: {time.time() - t:.1f} s")
-    t = time.time()
-    times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
-                         per_word)
-    times["flashattn"] = time_flash(torch, device, ref, fa, GQA_SHAPES[0])
-    times["flashattn"]["at_moe_shape"] = time_flash(torch, device, ref, fa,
-                                                    MOE_GQA_SHAPE)
-    times["flashattn"]["at_encdec_shape"] = time_flash(
-        torch, device, ref, fa, ENCDEC_GQA_SHAPE)
-    log(f"[phase] timing: {time.time() - t:.1f} s")
-    del state
-    t = time.time()
-    train = training_path(torch, args, device, ops, "tinyllama-1.1b",
-                          "train", TRAIN_DIR)
-    log(f"[phase] checkpointed training: {time.time() - t:.1f} s")
-    t = time.time()
-    obj = objstore_path(torch, args, device, ops)
-    log(f"[phase] object store, incremental, SCR ({obj['depth']} of 22 "
-        f"layers): {time.time() - t:.1f} s")
-    t = time.time()
-    serve_launches = serve_path(torch, args, device, ops)
-    log(f"[phase] serve and deploy (deploy at {DEPLOY_LAYERS} of 22 layers): "
-        f"{time.time() - t:.1f} s")
-    t = time.time()
-    chaos = chaos_path(torch, args, device, ops)
-    log(f"[phase] chaos matrix, elastic and sharded restore, supervised "
-        f"kill: {time.time() - t:.1f} s")
-    t = time.time()
-    moe = training_path(torch, args, device, ops, MOE_ARCH, "moe", MOE_DIR,
-                        donate=True, ranges=MOE_RANGES, layers=MOE_LAYERS)
-    log(f"[phase] checkpointed MoE training ({MOE_LAYERS} of 32 layers): "
-        f"{time.time() - t:.1f} s")
-    t = time.time()
-    mla = mla_path(torch, args, device, ops)
-    log(f"[phase] MLA serve and resume ({MLA_LAYERS} of 62 layers): "
-        f"{time.time() - t:.1f} s")
-    t = time.time()
-    ssm = ssm_path(torch, args, device, ops)
-    log(f"[phase] RWKV6 serve and resume: {time.time() - t:.1f} s")
-    t = time.time()
-    encdec = training_path(torch, args, device, ops, ENCDEC_ARCH, "encdec",
-                           ENCDEC_DIR, batch=ENCDEC_BATCH, seq=ENCDEC_SEQ)
-    log(f"[phase] checkpointed encoder-decoder training: "
-        f"{time.time() - t:.1f} s")
-    t = time.time()
-    mesh = mesh_path(torch, args, device, ops, reference=[
-        (x[4], x[6]) for x in train["steps"] if x[0] == "A"][:2])
-    log(f"[phase] 4-process mesh: two sharded train steps, store, restores "
-        f"onto (1, 4) and (2, 1), sequence-sharded decode: "
-        f"{time.time() - t:.1f} s")
+    else:
+        device = torch.device("cuda", 0)
+        log(f"[env] {torch.cuda.get_device_name(0)}, torch "
+            f"{torch.__version__}, CUDA {torch.version.cuda}")
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+        torch.backends.cudnn.allow_tf32 = False
+        per_word = build_kernels(build)
+    ran = {}
+    if 2 in phases:
+        t = time.time()
+        worst = check_kernels(torch, device, ops, ref, bh, dp)
+        worst["flashattn"] = check_flash(torch, device, ops, ref, fa)
+        log(f"[phase] kernel checks: {time.time() - t:.1f} s")
+    if 3 in phases:
+        state, ids2, ids4, launches, _ = timed(
+            "directive path", main_path, torch, args, device, ops)
+        ran["directive"] = launches
+    if 4 in phases:
+        t = time.time()
+        times = time_kernels(torch, state, ids2, ids4, ops, ref, bh, dp,
+                             per_word)
+        times["flashattn"] = time_flash(torch, device, ref, fa,
+                                        GQA_SHAPES[0])
+        times["flashattn"]["at_moe_shape"] = time_flash(
+            torch, device, ref, fa, MOE_GQA_SHAPE)
+        times["flashattn"]["at_encdec_shape"] = time_flash(
+            torch, device, ref, fa, ENCDEC_GQA_SHAPE)
+        log(f"[phase] timing: {time.time() - t:.1f} s")
+    if 3 in phases:
+        del state
+    if 5 in phases:
+        train = timed("checkpointed training", training_path, torch, args,
+                      device, ops, "tinyllama-1.1b", "train",
+                      args.workdir / TRAIN_DIR)
+        ran["training"] = train["launches"]
+    if 6 in phases:
+        obj = timed("object store, incremental, SCR" + cut(
+                        f"{min(args.layers, OBJSTORE_LAYERS)} of 22 layers"),
+                    objstore_path, torch, args, device, ops)
+        ran["objstore"] = obj["launches"]
+    if 7 in phases:
+        ran["serve"] = timed("serve and deploy" + cut(
+            f"deploy at {DEPLOY_LAYERS} of 22 layers"), serve_path, torch,
+            args, device, ops)
+    if 8 in phases:
+        chaos = timed("chaos matrix, elastic and sharded restore, "
+                      "supervised kill", chaos_path, torch, args, device,
+                      ops)
+        ran["chaos"] = chaos["launches"]
+        ran["supervised"] = chaos["worker_launches"]
+    if 9 in phases:
+        moe = timed("checkpointed MoE training" + cut(
+                        f"{MOE_LAYERS} of 32 layers"),
+                    training_path, torch, args, device, ops, MOE_ARCH, "moe",
+                    args.workdir / MOE_DIR, donate=True, ranges=MOE_RANGES,
+                    layers=MOE_LAYERS)
+        ran["moe"] = moe["launches"]
+    if 10 in phases:
+        mla = timed("MLA serve and resume" + cut(
+                        f"{MLA_LAYERS} of 62 layers"),
+                    mla_path, torch, args, device, ops)
+        ran["mla"] = mla["launches"]
+    if 11 in phases:
+        ssm = timed("RWKV6 serve and resume", ssm_path, torch, args, device,
+                    ops)
+        ran["ssm"] = ssm["launches"]
+    if 12 in phases:
+        encdec = timed("checkpointed encoder-decoder training",
+                       training_path, torch, args, device, ops, ENCDEC_ARCH,
+                       "encdec", args.workdir / ENCDEC_DIR,
+                       batch=ENCDEC_BATCH, seq=ENCDEC_SEQ)
+        ran["encdec"] = encdec["launches"]
+    if 13 in phases:
+        reference = None
+        if 5 in phases and on_card:
+            reference = [(x[4], x[6]) for x in train["steps"]
+                         if x[0] == "A"][:2]
+        mesh = timed("4-process mesh: two sharded train steps, store, "
+                     "restores onto (1, 4) and (2, 1), sequence-sharded "
+                     "decode", mesh_path, torch, args, device, ops,
+                     reference=reference)
+        ran["mesh"] = mesh["launches"]
+    if 14 in phases:
+        examples = timed("the port's seven examples, as a user runs them",
+                         examples_path, torch, args, device, ops)
+        ran["examples"] = examples["launches"]
     log(f"[phase] all phases, the build included: "
         f"{time.time() - t_start:.1f} s")
+    if not on_card:
+        log(f"chip_smoke: CPU rehearsal of phases "
+            f"{', '.join(map(str, phases))} passed (no kernel ran; no "
+            "result)")
+        return
+    kind = torch.cuda.get_device_name(0)
+    if phases != list(PHASES):
+        log(f"chip_smoke: phases {', '.join(map(str, phases))} passed on "
+            f"{kind} (a run of some phases prints no result)")
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3006,13 +3379,6 @@ def main() -> None:
     # zero over that path: the directive path (phase 3) for the hash, the
     # pack and the unpack, the training path (phase 5) for attention; every
     # path's own counts stand in launches_by_path
-    paths = {"directive": launches, "training": train["launches"],
-             "objstore": obj["launches"], "serve": serve_launches,
-             "chaos": chaos["launches"],
-             "supervised": chaos["worker_launches"],
-             "moe": moe["launches"], "mla": mla["launches"],
-             "ssm": ssm["launches"], "encdec": encdec["launches"],
-             "mesh": mesh["launches"]}
     meta = {
         "blockhash2": ("src/repro_torch/kernels/csrc/blockhash2.cu",
                        "src/repro/kernels/blockhash.py:34", "directive"),
@@ -3028,12 +3394,14 @@ def main() -> None:
         r = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[path][name],
+            "replaces": replaces, "launches": ran[path][name],
             "max_abs_err": worst[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "work": r["work"], "path": path,
-            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "launches_by_path": {p: c[name] for p, c in ran.items()},
+            "launches_by_example": {p: c[name] for p, c in
+                                    examples["by_program"].items()},
             "layers": args.layers if path == "directive" else 22,
             "layers_by_path": {"directive": args.layers, "training": 22,
                                "objstore": obj["depth"], "serve": 22,
@@ -3041,7 +3409,8 @@ def main() -> None:
                                "supervised": chaos["supervised_layers"],
                                "moe": moe["layers"], "mla": mla["layers"],
                                "ssm": ssm["layers"],
-                               "encdec": encdec["layers"], "mesh": 22}})
+                               "encdec": encdec["layers"], "mesh": 22,
+                               "examples": None}})
         kernels[-1]["mesh_launches_by_rank"] = {
             world: [c[name] for c in counts]
             for world, counts in mesh["by_rank"].items()}

@@ -607,7 +607,8 @@ def heartbeat_loss_mid_gc(workdir: str, backend: str, device) -> ScenarioResult:
 
 # -- supervised multi-process scenario ---------------------------------------
 @scenario("supervised-kill", table=SUPERVISED)
-def supervised_kill(workdir: str, backend: str, device) -> ScenarioResult:
+def supervised_kill(workdir: str, backend: str, device,
+                    layers: Optional[int] = None) -> ScenarioResult:
     """Real kill/restart supervision: spawn ``launch/train.py --supervise``
     with an ``OPENCHK_CHAOS`` exit spec that hard-kills the worker at step
     8 (checkpoints at 3 and 6).  Asserts kill-detect → backoff → resume
@@ -620,7 +621,8 @@ def supervised_kill(workdir: str, backend: str, device) -> ScenarioResult:
     card.  There each FULL is kept only until the next one commits
     (``--keep-last-full 1``), so the disk holds at most two of them.  The
     finishing worker's kernel launches come back in
-    ``detail["worker_launches"]``."""
+    ``detail["worker_launches"]``.  ``layers`` cuts the workers' depth
+    (``launch/train.py --layers``)."""
     ckpt_dir = os.path.join(workdir, "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
     import repro_torch
@@ -640,6 +642,8 @@ def supervised_kill(workdir: str, backend: str, device) -> ScenarioResult:
            "--restart-backoff-max", "1.0", "--backend", backend,
            "--device", torch.device(device).type]
     cmd.append("--launch-counts")
+    if layers is not None:
+        cmd += ["--layers", str(layers)]
     if on_card:
         cmd += ["--full", "--keep-last-full", "1"]
         env["REPRO_ATTN_IMPL"] = "flash"

@@ -33,6 +33,7 @@ import torch
 from repro_torch.core.formats import (
     PRECISIONS,
     numpy_to_tensor,
+    str_to_dtype,
     tensor_to_numpy,
     torch_dtype_to_str,
     dtype_to_str,
@@ -280,6 +281,18 @@ def resolve_specs(
     return {path: out[path] for path in named if path in out}
 
 
+def select(named: Dict[str, Any], patterns: Optional[List[str]]) -> Dict[str, Any]:
+    """Glob-select protected leaves. ``None`` → everything. ``**`` crosses
+    slashes; ``*`` does not.  (Compatibility wrapper over
+    :func:`resolve_specs` — kept for callers that only need the leaves.)"""
+    if not patterns:
+        return dict(named)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        chosen = resolve_specs(named, list(patterns))
+    return {path: named[path] for path in chosen}
+
+
 def to_host(named: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """Device→host snapshot of every protected leaf.
 
@@ -302,6 +315,15 @@ def from_numpy_named(named_np: Dict[str, np.ndarray],
     ``jax.device_get``) → ``{path: Tensor}`` on ``device`` with identical
     bytes, dtype and shape — how state is carried across the packages."""
     return {k: numpy_to_tensor(v, device) for k, v in named_np.items()}
+
+
+def leaf_meta(named: Dict[str, Any]) -> Dict[str, Dict]:
+    """``{path: {"dtype": numpy's dtype string, "shape": [...]}}`` — the
+    string numpy gives the leaf's host copy (``"<f4"``; bf16 through
+    ml_dtypes, ``"<V2"``), as the JAX package's ``leaf_meta`` gives it."""
+    return {k: {"dtype": str_to_dtype(leaf_dtype_str(v)).str,
+                "shape": list(v.shape)}
+            for k, v in named.items()}
 
 
 def leaf_dtype_str(leaf: Any) -> str:

@@ -23,6 +23,7 @@ widths.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -52,6 +53,8 @@ def worker(args) -> int:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     step_fn = make_train_step(
         model, AdamWConfig(total_steps=args.steps, warmup_steps=args.steps // 10),
@@ -158,6 +161,9 @@ def main() -> int:
     ap.add_argument("--differential", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: a reduced config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="a cut of the config's depth, its widths kept "
+                         "(default: all its layers)")
     ap.add_argument("--keep-last-full", type=int, default=2,
                     help="committed FULL checkpoints kept on each tier "
                          "(older ids and their DIFF chains are deleted)")

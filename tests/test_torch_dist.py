@@ -17,7 +17,7 @@
   ones serve on (1, 4) behind ``FleetDeployer``, which installs v2 as
   ``DTensor`` leaves of the serving mesh after a warm v1 pull, fetching
   only the chunk delta.
-- ``chip_smoke.py --device cpu --mesh-only`` rehearses phase 13.
+- ``chip_smoke.py --device cpu --phases 13`` rehearses phase 13.
 """
 import json
 import os
@@ -407,14 +407,14 @@ def test_hints_redistribute_a_dtensor_under_a_mesh(comm_world):
         assert r["kv_placements"] == ["Shard(dim=0)", "Shard(dim=2)"]
 
 
-def test_chip_smoke_rehearses_phase_13_on_cpu():
-    """``chip_smoke.py --device cpu --mesh-only``: phase 13 on four gloo
+def test_chip_smoke_rehearses_phase_13_on_cpu(tmp_path):
+    """``chip_smoke.py --device cpu --phases 13``: phase 13 on four gloo
     processes at the reduced config (store on (2, 2), restores onto (1, 4)
     and (2, 1), exact dirty count, own boxes only); no result printed."""
     out = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--device", "cpu", "--mesh-only",
-         "--block-bytes", "256"], cwd=ROOT, capture_output=True, text=True,
-        timeout=240)
+        [sys.executable, "chip_smoke.py", "--device", "cpu", "--phases", "13",
+         "--block-bytes", "256", "--workdir", str(tmp_path)], cwd=ROOT,
+        capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
     assert "as counted from the rows the update wrote" in out.stdout
     assert "restore onto (1,4) on 4 processes" in out.stdout

@@ -341,39 +341,72 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     assert not bad, bad
 
 
-def test_chip_smoke_main_path_rehearses_on_cpu():
-    """chip_smoke.py's main paths at a tiny width with the plain versions:
-    the directive path (FULL, in-place update before the async tail, DIFF
-    with the exact dirty count, promoted FULL, DIFF, restart), the
-    checkpointed training (run A vs store, fault, restore, resume) on a
-    reduced config, serving and deploy, phase 8: the chaos matrix, the
-    elastic rescale, the sharded directive restore with its fall back, and
-    the supervised kill, phase 10: MLA served and resumed, phase 11:
-    RWKV6 served and resumed, every cadence store promoted to FULL, and
-    phase 12: the encoder-decoder (whisper-small) trained, faulted and
-    resumed."""
+#: the CPU rehearsal's cases: phases, the child's time limit in seconds,
+#: and the lines it must print.  Each limit is 4x or more what the case
+#: took beside the multi-process tests on six pytest workers on eight
+#: cores (33, 11, 40, 14 and 14 s).
+REHEARSALS = {
+    # the directive path (FULL, in-place update before the async tail,
+    # DIFF with the exact dirty count, promoted FULL, DIFF, restart), the
+    # checkpointed training (run A vs store, fault, restore, resume) on a
+    # reduced config, and phase 6 (object store, incremental, SCR)
+    "directive-training-objstore": ("3,5,6", 150, [
+        "dirty blocks: store 2",
+        "resumed TrainState equals run A's bit for bit",
+        "restore from the object store alone: 13 leaves bit-exact on cpu",
+        "SCR FULL store"]),
+    # serving and deploy, phase 10: MLA served and resumed, phase 11:
+    # RWKV6 served and resumed, every cadence store promoted to FULL
+    "serve-deploy-mla-ssm": ("7,10,11", 120, [
+        "generates the 4 tokens of an engine built on",
+        "[mla] restore:",
+        "[ssm] every cadence store promoted to FULL (3)"]),
+    # phase 8: the chaos matrix, the elastic rescale, the sharded
+    # directive restore with its fall back, and the supervised kill
+    "chaos-elastic-supervised": ("8", 180, [
+        "[chaos] matrix on cpu: 24/24 passed, data loss 0 B",
+        "new world 3: every rank's rows on cpu equal",
+        "restores it into zeros on cpu bit-exact",
+        "the walk fell back to id 1",
+        "resumed from step 6, one restart",
+        "the restarted worker's launches"]),
+    # phase 9: MoE trained, faulted and resumed; phase 12: the
+    # encoder-decoder (whisper-small) trained, faulted and resumed
+    "moe-encdec": ("9,12", 120, [
+        "[moe] resumed TrainState equals run A's bit for bit",
+        "[encdec] resumed TrainState equals run A's bit for bit"]),
+    # phase 14: the seven examples in one process, each one's result held
+    "examples": ("14", 120, [
+        "torch_quickstart.py: done at step 50; the rerun resumed",
+        "torch_differential_demo.py: a DIFF, a promoted FULL",
+        "torch_serve_resilient.py: resumed at pos 22",
+        "torch_clause_protection.py: params within",
+        "torch_multibackend_portability.py: x0=20 and the restart",
+        "torch_telemetry_trace.py: span",
+        "torch_train_checkpointed.py: faulted at step 18, finished at 20"]),
+}
+
+
+@pytest.mark.parametrize("case", list(REHEARSALS))
+def test_chip_smoke_main_path_rehearses_on_cpu(case, tmp_path):
+    """chip_smoke.py's main paths at a tiny width with the plain versions,
+    by groups of phases (``--phases``), each in its own ``--workdir``."""
+    phases, limit, wanted = REHEARSALS[case]
     out = subprocess.run(
         [sys.executable, "chip_smoke.py", "--device", "cpu", "--layers", "1",
-         "--width-div", "16", "--block-bytes", "256"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "dirty blocks: store 2" in out.stdout
-    assert "resumed TrainState equals run A's bit for bit" in out.stdout
-    # phase 7 (tinyllama), phase 10 (MLA: minicpm3's latent cache) and
-    # phase 11 (RWKV6: rwkv6-3b's recurrent state)
-    assert out.stdout.count("final ServeState equal run A's bit for bit") \
-        == 3
-    assert "[mla] restore:" in out.stdout
-    assert "[ssm] every cadence store promoted to FULL (3)" in out.stdout
-    assert "[encdec] resumed TrainState equals run A's bit for bit" in \
-        out.stdout
-    assert "generates the 4 tokens of an engine built on" in out.stdout
-    assert "[chaos] matrix on cpu: 24/24 passed, data loss 0 B" in out.stdout
-    assert "new world 3: every rank's rows on cpu equal" in out.stdout
-    assert "restores it into zeros on cpu bit-exact" in out.stdout
-    assert "the walk fell back to id 1" in out.stdout
-    assert "resumed from step 6, one restart" in out.stdout
-    assert "the restarted worker's launches" in out.stdout
+         "--width-div", "16", "--block-bytes", "256", "--phases", phases,
+         "--workdir", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=limit)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    for line in wanted:
+        assert line in out.stdout, line
+    if case == "serve-deploy-mla-ssm":
+        # phase 7 (tinyllama), phase 10 (MLA: minicpm3's latent cache) and
+        # phase 11 (RWKV6: rwkv6-3b's recurrent state)
+        assert out.stdout.count(
+            "final ServeState equal run A's bit for bit") == 3
+    assert f"CPU rehearsal of phases {phases.replace(',', ', ')} passed" \
+        in out.stdout
     assert '"ok"' not in out.stdout            # a CPU run prints no result
 
 

@@ -198,3 +198,57 @@ def test_legacy_positional_tcl_protocol_still_works(tmp_path):
     got = b.tcl_load()
     np.testing.assert_array_equal(got["x"], np.arange(6.0))
     b.tcl_finalize()
+
+
+# ------------------------------------------------------------------ #
+# select / leaf_meta (the reference's compatibility helpers)
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize("patterns", [
+    None, [], ["params/**"], ["params/*"], ["opt/m", "step"],
+    ["params/layers/*/wq", "params/**"], ["nope/**"]])
+def test_select_and_leaf_meta_equal_reference(patterns):
+    """On one named tree (seeded numpy leaves of every dtype width, bf16
+    included), ``select`` picks the reference's leaves in its order — or
+    raises as it does for a selector that matches nothing — and
+    ``leaf_meta`` gives its numpy dtype strings and shapes."""
+    import ml_dtypes
+    from repro.core.protect import leaf_meta as ref_leaf_meta
+    from repro.core.protect import select as ref_select
+    from repro_torch.core.formats import numpy_to_tensor
+    from repro_torch.core.protect import leaf_meta, select
+
+    rng = np.random.default_rng(7)
+    tree_np = {
+        "params": {"embed": rng.normal(size=(8, 4)).astype(np.float32),
+                   "layers": [{"wq": rng.normal(size=(4, 4)).astype(
+                       ml_dtypes.bfloat16)} for _ in range(2)],
+                   "scale": rng.normal(size=(4,)).astype(np.float16)},
+        "opt": {"m": rng.normal(size=(3, 5)).astype(np.float32),
+                "count": rng.integers(0, 9, size=(2,)).astype(np.int16)},
+        "step": np.asarray(7, np.int32),
+        "mask": rng.integers(0, 2, size=(6,)).astype(np.uint8),
+    }
+    ref_named, _ = jflatten_named(_map(jnp.asarray, tree_np))
+    named = flatten_named(_map(numpy_to_tensor, tree_np))
+    assert list(named) == list(ref_named)
+    if patterns == ["nope/**"]:
+        with pytest.raises(ValueError, match="nope"):
+            ref_select(ref_named, patterns)
+        with pytest.raises(ValueError, match="nope"):
+            select(named, patterns)
+        return
+    want = ref_select(ref_named, patterns)
+    got = select(named, patterns)
+    assert list(got) == list(want)
+    assert all(got[k] is named[k] for k in got)
+    assert leaf_meta(got) == ref_leaf_meta(want)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)

@@ -117,3 +117,29 @@ def test_launcher_level_cycle_reaches_l4_and_publishes_to_the_catalog(
     assert entry["manifest"]["level"] == 4
     assert "rank0.chk5" in entry["files"]
     assert os.path.isdir(os.path.join(d, "global", "ckpt-8"))
+
+
+@pytest.mark.parametrize("layers", [None, 1])
+def test_launcher_layers_cuts_the_depth_and_keeps_the_widths(
+        tmp_path, monkeypatch, capsys, layers):
+    """``--layers N`` trains the config at N layers with its widths (the
+    cut phase 8's supervised kill workers take on the card); without it,
+    every layer of the config."""
+    from repro_torch.launch import train as launch
+    d = tmp_path / "run"
+    argv = ["train", "--device", "cpu", "--steps", "1", "--ckpt-every", "1",
+            "--batch", "1", "--seq", "16", "--ckpt-dir", str(d),
+            "--no-dedicated-thread"]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
+    monkeypatch.setattr(sys, "argv", argv)
+    assert launch.main() == 0
+    assert "'final_step': 1" in capsys.readouterr().out
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    want = cfg.n_layers if layers is None else layers
+    ctx = _ctx(d)
+    got = ctx.load({"params": {"groups": [{"attn": {"wq": torch.zeros(
+        want, cfg.d_model, cfg.n_heads * cfg.head_dim)}}]}})
+    assert ctx.restarted
+    assert got["params"]["groups"][0]["attn"]["wq"].shape[0] == want
+    ctx.shutdown()
