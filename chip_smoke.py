@@ -173,8 +173,12 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
 13. A multi-process mesh at full width: tinyllama-1.1b's parameters
    (``build_model(get_arch("tinyllama-1.1b")).init``, the stacked tree,
    4.40 GB in f32, phase 5's seed on every rank; no cut) on four
-   processes that share the one card (``torch.distributed.run``; gloo,
-   since NCCL refuses two ranks on one GPU), placed on a (data 2, model 2)
+   processes (``torch.distributed.run``): on one card they share it over
+   gloo, since NCCL refuses two ranks on one GPU; on a machine with a
+   card per rank each world runs over NCCL (``cpu:gloo,cuda:nccl``), one
+   rank per card, and a world that reports another layout fails the
+   phase (``launch/mesh.world_layout``; each world's line names its
+   backend, its cards and its wall time), placed on a (data 2, model 2)
    mesh by the sharding rules as ``DTensor`` leaves of a ``TrainState``
    laid out by the dry-run's ZeRO-1 shardings, and trained two steps on
    phase 5's batches (4 × 2048 on data, bf16, remat, flash on each rank's
@@ -2651,10 +2655,33 @@ MESH_DECODE_KL_OWN, MESH_DECODE_KL_FLOOR = 4.0, 1e-3
 MESH_NEAR_TIE_ULPS = 2
 
 
+def check_world(torch, device, name: str, n: int, results: list,
+                t0: float, wall: float) -> str:
+    """Every rank of a world of ``n`` reported, each on the backend and the
+    card that ``world_layout`` gives this machine (NCCL, one rank per card,
+    where it has a card per rank; gloo on shared cards or the CPU), and
+    logs the world's line → its backend."""
+    from repro_torch.launch.mesh import world_layout
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    want = [world_layout(device.type, r, n, n_cards) for r in range(n)]
+    got = [(r["process_group"], r["card"]) for r in results]
+    if len(results) != n or got != [(b, d.index) for b, d in want]:
+        fail(f"phase 13: the {name} world's ranks ran on (backend, card) "
+             f"{got}; on {n_cards} cards {n} ranks take "
+             f"{[(b, d.index) for b, d in want]}")
+    backend = want[0][0]
+    where = (f"cards {[c for _, c in got]}" if device.type == "cuda"
+             else "the CPU")
+    log(f"[mesh] {name} world: {n} processes over {backend} on {where}; "
+        f"wall {wall:.1f} s: {world_spans(t0, t0 + wall, results)}")
+    return backend
+
+
 def mesh_path(torch, args, device, ops, reference=None) -> dict:
     """Phase 13.  tinyllama-1.1b's parameters (``build_model(...).init``,
     phase 5's seed on every rank; the stacked tree, 4.40 GB in f32 at full
-    width) on four processes of one card: a (2, 2) mesh, two sharded
+    width) on four processes (of one card over gloo; of four cards over
+    NCCL, one rank each, :func:`check_world`): a (2, 2) mesh, two sharded
     train steps held to ``reference`` (phase 5's first two steps: losses
     and gradient norms), FULL + sparse update + DIFF of the trained
     parameters through FTI's CP-dedicated thread, every worker exits;
@@ -2696,9 +2723,7 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
         return [json.loads(f.read_text()) for f in files]
 
     src = load("store")
-    if len(src) != 4:
-        fail(f"phase 13: {len(src)} of 4 store workers reported")
-    log(f"[mesh] store world: {world_spans(t, t + store_s, src)}")
+    backend = check_world(torch, device, "store (2, 2)", 4, src, t, store_s)
     check_mesh_training(src, device, reference)
     for r in src:
         tag = f"[mesh] store rank {r['rank']}"
@@ -2752,10 +2777,11 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
         wall = time.time() - t
         name = "restore-" + mesh.replace(",", "x")
         got = load(name)
-        if len(got) != n or not all(g["restarted"] and g["placements_kept"]
-                                    for g in got):
-            fail(f"phase 13: restore onto ({mesh}): {len(got)} of {n} "
-                 "ranks restored with the template's placements")
+        check_world(torch, device, f"restore ({mesh})", n, got, t, wall)
+        if not all(g["restarted"] and g["placements_kept"] for g in got):
+            fail(f"phase 13: restore onto ({mesh}): "
+                 f"{sum(g['restarted'] and g['placements_kept'] for g in got)}"
+                 f" of {n} ranks restored with the template's placements")
         boxes = compare(src, got)
         restored[mesh] = boxes
         by_rank[name] = [g["launches"] for g in got]
@@ -2765,8 +2791,7 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
                 f"{g.get('peak_bytes', 0) / 1e9:.2f} GB, launches "
                 f"{g['launches']}")
         log(f"[mesh] restore onto ({mesh}) on {n} processes: {boxes} box "
-            f"hashes equal the source's; world {wall:.1f} s: "
-            f"{world_spans(t, t + wall, got)}")
+            f"hashes equal the source's")
     for r in src:
         if device.type == "cuda" and r["launches"] != r["designed_launches"]:
             fail(f"phase 13: rank {r['rank']} launched {r['launches']}, "
@@ -2786,7 +2811,8 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
              for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
     log(f"[mesh] a 4-process (2, 2) store of two sharded train steps' "
         f"parameters restored bit-exact onto (1, 4) on 4 processes and "
-        f"(2, 1) on 2 on {device.type}; store world {store_s:.1f} s")
+        f"(2, 1) on 2 on {device.type} over {backend}; store world "
+        f"{store_s:.1f} s")
     shutil.rmtree(mesh_dir, ignore_errors=True)
     return {"launches": total, "by_rank": by_rank}
 

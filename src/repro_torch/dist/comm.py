@@ -22,6 +22,11 @@ store of a sharded leaf.  :class:`ProcessGroupComm` gives the interface of
 Every payload is host bytes or host (numpy) objects: a tensor on the card
 never enters a gloo collective here — the one place the checkpoint path
 copies to the host for the transport is the caller's ``tensor → numpy``.
+So the groups are gloo whatever the world's default group is: beside an
+NCCL world (``launch/mesh.py``: a card per rank) they carry the same
+bytes as on one card, and the CP thread, which launches nothing on the
+card, never waits on NCCL's stream, nor the training step's NCCL
+collectives on the CP thread's exchange.
 """
 from __future__ import annotations
 
@@ -74,7 +79,8 @@ class ProcessGroupComm(Communicator):
         self.node_local_dir = os.path.join(local_root, f"rank{self.rank}")
         os.makedirs(self.node_local_dir, exist_ok=True)
         timeout = datetime.timedelta(seconds=timeout_s)
-        # created in the same order on every rank (new_group is collective)
+        # created in the same order on every rank (new_group is collective),
+        # gloo beside a gloo or an NCCL default group
         self._group = dist.new_group(backend="gloo", timeout=timeout)
         self._plan_group = dist.new_group(backend="gloo", timeout=timeout)
         self._store = dist.PrefixStore(

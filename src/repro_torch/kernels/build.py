@@ -103,7 +103,11 @@ def compile_all(names: Iterable[str]) -> Dict[str, str]:
         if p.returncode != 0:
             failed.append(f"{name} (nvcc exit {p.returncode}):\n{text}")
             continue
-        log.write_text(text)
+        # processes that build at once each write their own temporaries
+        # and rename them into place: a reader sees a whole file or none
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(text)
+        os.replace(tmp_log, log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

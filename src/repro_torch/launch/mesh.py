@@ -2,13 +2,25 @@
 
 A ``DeviceMesh`` of N devices is N processes, one per mesh coordinate.
 :func:`join_from_env` is what a worker started by ``python -m
-torch.distributed.run`` calls first: it reads the rank, the world size and
-the store address that the launcher put in the environment (the only
-place in the package that reads them), joins the process group over gloo,
-and binds the process to its device.  Every rank of a one-card machine
-shares ``cuda:0``: NCCL refuses two ranks on one GPU, so the world's
-collectives run over gloo, and the checkpoint path exchanges host bytes
-only (``dist/comm.py``).
+torch.distributed.run`` calls first: it reads the rank, the world size,
+the local rank and the local world size and the store address that the
+launcher put in the environment (the only place in the package that
+reads them), binds the process to its device and joins the process
+group.  :func:`world_layout` picks both from the hardware:
+
+- each rank of this machine has a card of its own (the local world size
+  is at most the cards the process sees): rank ``k`` takes ``cuda:k`` and
+  the world is ``cpu:gloo,cuda:nccl``: tensors on the card go over NCCL
+  (DTensor's redistributions, the gradient reduce-scatter, ZeRO-1's
+  all-gather, the decode combine), host tensors over gloo.  There is no
+  fallback: where NCCL cannot start or run, the worker raises;
+- the ranks share cards (NCCL refuses two ranks on one GPU), or the
+  device is the CPU: the world is gloo, every collective a host round
+  trip, and on the card gloo's functional all-gather is routed through
+  :func:`gloo_cuda_all_gather`.
+
+Either way the checkpoint path exchanges host bytes only, over gloo
+groups of its own (``dist/comm.py``).
 
 ``make_production_mesh`` and ``make_host_mesh`` are functions (not
 module-level constants), so importing this module touches no process
@@ -72,7 +84,9 @@ def gloo_cuda_all_gather() -> None:
     ``torch.distributed`` call, the same all-gather, works; the other
     functional collectives DTensor uses (all-reduce, reduce-scatter) work
     as they are.  The gather is synchronous, so the op's ``wait_tensor``
-    finds nothing to wait for."""
+    finds nothing to wait for.  :func:`join` installs it on gloo worlds
+    only: on an NCCL world the functional all-gather stays asynchronous,
+    as torch ships it."""
     global _GLOO_CUDA_LIB
     if _GLOO_CUDA_LIB is not None:
         return
@@ -92,37 +106,63 @@ def gloo_cuda_all_gather() -> None:
     _GLOO_CUDA_LIB = lib
 
 
+#: the process group of a world whose every rank has a card of its own
+NCCL = "cpu:gloo,cuda:nccl"
+
+
+def world_layout(device_type: str, local_rank: int, local_world: int,
+                 n_cards: int) -> Tuple[str, torch.device]:
+    """→ (the world's backend, this rank's device): a card per local rank
+    (``local_world`` at most ``n_cards``) joins over NCCL on
+    ``cuda:<local_rank>``; ranks that share cards join over gloo on
+    ``cuda:<local_rank mod n_cards>``; the CPU joins over gloo."""
+    if device_type == "cpu":
+        return "gloo", torch.device("cpu")
+    if device_type != "cuda":
+        raise ValueError(f"device type {device_type!r}: cuda or cpu")
+    if n_cards < 1:
+        raise ValueError("device type cuda, but no card is visible")
+    if local_world <= n_cards:
+        return NCCL, torch.device("cuda", local_rank)
+    return "gloo", torch.device("cuda", local_rank % n_cards)
+
+
 def join(rank: int, world: int, init_method: str, *,
          device_type: str = "cpu", local_rank: int = 0,
-         timeout_s: float = JOIN_TIMEOUT_S) -> torch.device:
-    """Join the process group (gloo) and bind the process to its device:
-    ``cuda:<local_rank mod the cards this machine has>`` or the CPU."""
-    if device_type == "cuda":
-        torch.cuda.set_device(local_rank % torch.cuda.device_count())
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device("cpu")
+         local_world: Optional[int] = None,
+         timeout_s: float = JOIN_TIMEOUT_S) -> Tuple[torch.device, str]:
+    """Bind the process to its device and join the process group, as
+    :func:`world_layout` lays them out for ``local_world`` ranks on this
+    machine (default: every rank of the world) → (device, backend)."""
+    n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    backend, device = world_layout(
+        device_type, local_rank, world if local_world is None else local_world,
+        n_cards)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     dist.init_process_group(
-        "gloo", init_method=init_method, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    if device_type == "cuda":
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s),
+        # NCCL's communicator is made now, on this rank's card
+        device_id=device if backend == NCCL else None)
+    if device.type == "cuda" and backend == "gloo":
         gloo_cuda_all_gather()
-    return device
+    return device, backend
 
 
 def join_from_env(device_type: str = "cpu",
                   timeout_s: float = JOIN_TIMEOUT_S
-                  ) -> Tuple[int, int, torch.device]:
+                  ) -> Tuple[int, int, torch.device, str]:
     """A ``torch.distributed.run`` worker joins its world: → (rank, world
-    size, device)."""
+    size, device, backend)."""
     env = os.environ
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
-    device = join(rank, world,
-                  f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                  device_type=device_type,
-                  local_rank=int(env.get("LOCAL_RANK", rank)),
-                  timeout_s=timeout_s)
-    return rank, world, device
+    device, backend = join(
+        rank, world, f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        device_type=device_type, local_rank=int(env.get("LOCAL_RANK", rank)),
+        local_world=int(env.get("LOCAL_WORLD_SIZE", world)),
+        timeout_s=timeout_s)
+    return rank, world, device, backend
 
 
 def leave() -> None:

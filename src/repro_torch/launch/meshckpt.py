@@ -24,8 +24,11 @@ decodes from the restored parameters twice — over a cache sharded along
 its sequence over the data axis, and over a plain cache on each rank —
 after a batched prefill, and holds the first to the second.
 
-Each rank writes ``<out>/<command>-rank<r>.json``: store reports, bytes
-written and exchanged, kernel launches, peak device memory, and SHA-256
+Each rank writes ``<out>/<command>-rank<r>.json``: its world's backend
+(``process_group``: ``cpu:gloo,cuda:nccl`` where every rank of the
+machine has a card of its own, else ``gloo``) and its card (``card``),
+store reports, bytes written and exchanged (the checkpoint's host bytes
+go over gloo either way), kernel launches, peak device memory, and SHA-256
 digests of the state's values per box — for every intersection of a box
 the source mesh writes with a box of each ``--targets`` mesh (store), or
 of this rank's box with every box the source mesh writes (restore) — so
@@ -242,7 +245,8 @@ def designed_launches(named: Dict[str, Any], deltas: Dict[str, np.ndarray],
 def gloo_cuda_collectives(device: torch.device) -> Dict[str, str]:
     """Which gloo collectives take a tensor on the card: name → "ok" or
     the error (on a group of their own).  DTensor's redistributions use
-    the last three."""
+    the last three.  Asked on gloo worlds only: an NCCL world sends the
+    card's tensors over NCCL."""
     import torch.distributed as dist
     group = dist.new_group(backend="gloo")
     t = torch.ones(4, device=device)
@@ -294,7 +298,7 @@ def _emit(args, name: str, result: Dict[str, Any]) -> None:
     os.replace(path + ".part", path)
 
 
-def store(args, device: torch.device) -> Dict[str, Any]:
+def store(args, device: torch.device, process_group: str) -> Dict[str, Any]:
     rank = torch.distributed.get_rank()
     model = _model(args)
     meta = model.param_struct()
@@ -312,7 +316,7 @@ def store(args, device: torch.device) -> Dict[str, Any]:
         torch.cuda.empty_cache()
     _sync(device)
     out["init_s"] = time.time() - t
-    if device.type == "cuda":
+    if device.type == "cuda" and process_group == "gloo":
         out["gloo_cuda"] = gloo_cuda_collectives(device)
     comm = ProcessGroupComm(os.path.join(args.dir, "nodes"))
     ctx = _context(args, comm)
@@ -736,20 +740,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args.hash_after = [int(x) for x in args.hash_after.split(",") if x]
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("meshckpt: no card (pass --device cpu)")
-    _rank, _world, device = join_from_env(args.device)
+    _rank, _world, device, process_group = join_from_env(args.device)
     # wall-clock marks (time.time()): the launcher's start-up is what comes
     # before "main", the join what comes before "joined"
     timeline = {"main": t_main, "joined": time.time()}
+    world = {"process_group": process_group, "card": device.index}
     meshes = args.mesh
     if args.command == "store":
-        result = store(args, device)
-        result["timeline"] = dict(timeline, done=time.time())
+        result = store(args, device, process_group)
+        result.update(world, timeline=dict(timeline, done=time.time()))
         _emit(args, "store", result)
         args.source_mesh, meshes = args.mesh, args.then_restore
     for text in filter(None, meshes.split(";")):
         shape = _shape(text)
         result = restore(args, device, shape)
-        result["timeline"] = dict(timeline, done=time.time())
+        result.update(world, timeline=dict(timeline, done=time.time()))
         _emit(args, "restore-" + "x".join(map(str, shape)), result)
     leave()
 

@@ -293,7 +293,7 @@ def _comm_worker(out_dir: str) -> None:
     from repro_torch.dist.context import NamedSharding
     from repro_torch.launch.mesh import join_from_env, leave, make_mesh
 
-    rank, world, _device = join_from_env("cpu")
+    rank, world, _device, _ = join_from_env("cpu")
     comm = ProcessGroupComm(os.path.join(out_dir, "ck", "nodes"))
     res = {"rank": rank, "world": comm.world}
     comm.barrier()
@@ -470,7 +470,7 @@ def _deploy_worker(mode: str, d: str) -> None:
     from repro_torch.serve.deploy import FleetDeployer, Replica
     from repro_torch.serve.engine import ServingEngine, WeightsHandle
 
-    rank, _world, _device = join_from_env("cpu")
+    rank, _world, _device, _ = join_from_env("cpu")
     mesh = make_mesh((2, 2) if mode == "train" else (1, 4))
     sh = {"w": NamedSharding(mesh, P("data", MODEL)),
           "c": NamedSharding(mesh, P("data", MODEL))}

@@ -45,7 +45,7 @@ def _worker(d: str) -> None:
     from repro_torch.launch.mesh import join_from_env, leave, make_mesh
     from repro_torch.models.zoo import build_model
 
-    rank, _, _ = join_from_env("cpu")
+    rank, _, _, _ = join_from_env("cpu")
     mesh = make_mesh((WORLD, 1), ("data", "model"), "cpu")
     model = build_model(get_arch("tinyllama-1.1b").reduced())
     with np.load(f"{d}/params.npz") as z:

@@ -1240,3 +1240,157 @@ def test_dtensor_forward_on_a_one_rank_mesh_at_full_width_equals_plain():
         assert torch.equal(got.full_tensor(), want)
     finally:
         os.environ.pop("REPRO_ATTN_IMPL", None)
+
+
+# --------------------------------------------------------------------------- #
+# worlds with a card per rank: NCCL for the card's tensors, the checkpoint's
+# host bytes on gloo beside it
+# --------------------------------------------------------------------------- #
+
+
+def _distributed_run(n: int, argv, env=None, timeout=300):
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ if env is None else env,
+               PYTHONPATH=os.path.join(root, "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), *argv],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def _nccl_one_rank_worker(d: str) -> None:
+    """One rank on one card: join (NCCL), a (1, 1) mesh, a DTensor
+    all-reduce and a ``dist.all_reduce`` on the card, then a FULL store of
+    a DTensor and a card tensor through ``ProcessGroupComm`` (its gloo
+    groups), with NCCL all-reduces on the main thread while the CP thread
+    finishes the store, and a restore into zeros."""
+    import json
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+    from repro_torch.core.resharding import reshard_tree, zeros_onto
+    from repro_torch.dist.comm import ProcessGroupComm
+    from repro_torch.dist.context import NamedSharding, P
+    from repro_torch.launch import mesh as meshlib
+
+    rank, world, device, backend = meshlib.join_from_env("cuda")
+    res = {"rank": rank, "world": world, "backend": backend,
+           "card": device.index, "default": str(dist.get_backend()),
+           "card_backend": dist.distributed_c10d._get_default_group()
+           ._get_backend(device).name(),
+           "override": meshlib._GLOO_CUDA_LIB is not None}
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"), "cuda")
+    x = torch.arange(12.0, device=device).reshape(3, 4)
+    part = DTensor.from_local(x, mesh, [Partial(), Replicate()],
+                              run_check=False)
+    res["dtensor_all_reduce"] = bool(torch.equal(
+        part.redistribute(mesh, [Replicate(), Replicate()]).to_local(), x))
+    t = torch.full((4,), 2.0, device=device)
+    dist.all_reduce(t)
+    res["all_reduce"] = t.tolist()
+
+    comm = ProcessGroupComm(os.path.join(d, "nodes"))
+    res["comm_groups"] = [str(dist.get_backend(g))
+                          for g in (comm._group, comm._plan_group)]
+    sh = {"w": NamedSharding(mesh, P("data", "model"))}
+    state = {"w": reshard_tree({"w": x}, sh)["w"],
+             "b": torch.arange(5.0, device=device)}
+    cfg = CheckpointConfig(dir=d, backend="fti", block_bytes=256,
+                           objstore=False)
+    ctx = CheckpointContext(cfg, comm)
+    ctx.store(state, id=1, level=1)
+    for _ in range(20):                 # NCCL beside the CP thread's tail
+        dist.all_reduce(t)
+    torch.cuda.synchronize(device)
+    ctx.wait()
+    ctx.shutdown()
+    res["all_reduce_after"] = t.tolist()
+    ctx = CheckpointContext(cfg, comm)
+    template = {"w": zeros_onto({"w": torch.empty(3, 4, device="meta")},
+                                sh)["w"],
+                "b": torch.zeros(5, device=device)}
+    got = ctx.load(template)
+    ctx.shutdown()
+    res["restored"] = ctx.restarted and bool(
+        torch.equal(got["w"].to_local(), x)) and bool(
+        torch.equal(got["b"], state["b"])) and got["b"].device == device
+    res["exchanged_bytes"] = comm.exchanged_bytes
+    with open(os.path.join(d, f"nccl-rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    meshlib.leave()
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_world_on_one_card_beside_gloo_checkpoint_groups(
+        tmp_path):
+    """A one-rank world on one card is NCCL (``cpu:gloo,cuda:nccl``, the
+    card's tensors on NCCL, no gloo override); ``ProcessGroupComm``'s two
+    groups are gloo beside it, and a store and a restore through them
+    run while the main thread all-reduces on NCCL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    r = _distributed_run(1, [__file__, "nccl-one", str(tmp_path)])
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    res = json.loads((tmp_path / "nccl-rank0.json").read_text())
+    assert res["backend"] == res["default"] == "cpu:gloo,cuda:nccl"
+    assert res["card_backend"] == "nccl" and res["card"] == 0
+    assert not res["override"]
+    assert res["dtensor_all_reduce"]
+    assert res["all_reduce"] == [2.0] * 4 == res["all_reduce_after"]
+    assert res["comm_groups"] == ["gloo", "gloo"]
+    assert res["restored"]
+
+
+def _two_rank_store_restore(tmp, env=None):
+    """meshckpt's reduced tinyllama: store from (1, 2), restore onto
+    (2, 1), two processes each → (store results, restore results)."""
+    import json
+    common = ["--reduced", "--device", "cuda", "--block-bytes", "256",
+              "--dir", str(tmp / "ck"), "--out", str(tmp / "out")]
+    for argv in (["store", "--mesh", "1,2", "--targets", "2,1"],
+                 ["restore", "--mesh", "2,1", "--source-mesh", "1,2"]):
+        r = _distributed_run(2, ["-m", "repro_torch.launch.meshckpt", *argv,
+                                 *common], env=env)
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    return [[json.loads((tmp / "out" / f"{n}-rank{k}.json").read_text())
+             for k in range(2)] for n in ("store", "restore-2x1")]
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_two_cards_store_shard_locally_over_nccl(tmp_path):
+    """Two processes on two cards join over NCCL, one rank per card: the
+    shard-local store from (1, 2) and the restore onto (2, 1) hold every
+    box, the DIFF's dirty blocks and the design's launches, ask gloo
+    nothing on the card, and exchange per store the bytes that the same
+    two ranks sharing one card over gloo exchange."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, {torch.cuda.device_count()} visible")
+    from repro_torch.launch.meshckpt import compare
+    src, got = _two_rank_store_restore(tmp_path / "nccl")
+    for r in src + got:
+        assert r["process_group"] == "cpu:gloo,cuda:nccl"
+    assert [r["card"] for r in src] == [0, 1] == [r["card"] for r in got]
+    for s in src:
+        assert "gloo_cuda" not in s
+        assert s["dirty_blocks"] == s["expected_dirty"]
+        assert s["launches"] == s["designed_launches"]
+    assert all(r["restarted"] and r["placements_kept"] for r in got)
+    assert compare(src, got) > 0
+    one_card = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    src1, _ = _two_rank_store_restore(tmp_path / "gloo", env=one_card)
+    assert [r["process_group"] for r in src1] == ["gloo", "gloo"]
+    assert [[st["exchanged_bytes"] for st in r["stores"]] for r in src] == \
+        [[st["exchanged_bytes"] for st in r["stores"]] for r in src1]
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1] == "nccl-one":
+        _nccl_one_rank_worker(sys.argv[2])

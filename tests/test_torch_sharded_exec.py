@@ -107,7 +107,7 @@ def _worker(d: str) -> None:
                                          train_state_struct)
     from repro_torch.train.step import make_train_step
 
-    rank, _, _ = join_from_env("cpu")
+    rank, _, _, _ = join_from_env("cpu")
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
 
     def load(path, struct):
