@@ -22,6 +22,10 @@ group.  :func:`world_layout` picks both from the hardware:
 Either way the checkpoint path exchanges host bytes only, over gloo
 groups of its own (``dist/comm.py``).
 
+Every entry point but :func:`make_host_mesh` (the CPU smoke mesh) works
+on the card unless its caller names ``"cpu"``, and raises where no card
+is visible: nothing falls back to the CPU.
+
 ``make_production_mesh`` and ``make_host_mesh`` are functions (not
 module-level constants), so importing this module touches no process
 group.
@@ -37,6 +41,9 @@ import torch.distributed as dist
 
 #: seconds a collective (and the join itself) may wait for the slowest rank
 JOIN_TIMEOUT_S = 600
+#: the error of every entry point asked for the card where none is visible
+NO_CARD = ("device type cuda, but no card is visible (pass device type "
+           "'cpu' for the CPU)")
 
 
 def _init_device_mesh(device_type: str, shape: Sequence[int],
@@ -46,17 +53,26 @@ def _init_device_mesh(device_type: str, shape: Sequence[int],
                             mesh_dim_names=tuple(names))
 
 
+def _check_device_type(device_type: str, n_cards: int) -> None:
+    """Raise where ``device_type`` is not one this module lays out, or is
+    ``"cuda"`` with no card visible: nothing falls back to the CPU."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device type {device_type!r}: cuda or cpu")
+    if device_type == "cuda" and n_cards < 1:
+        raise ValueError(NO_CARD)
+
+
 def make_mesh(shape: Sequence[int], names: Sequence[str] = ("data", "model"),
-              device_type: Optional[str] = None):
+              device_type: str = "cuda"):
     """A mesh of the joined world's ranks, row-major over ``shape`` (the
-    product of ``shape`` is the world size)."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    product of ``shape`` is the world size), on the card unless the caller
+    names ``"cpu"``."""
+    _check_device_type(device_type, torch.cuda.device_count())
     return _init_device_mesh(device_type, shape, names)
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: Optional[str] = None):
+                         device_type: str = "cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)
@@ -116,24 +132,22 @@ def world_layout(device_type: str, local_rank: int, local_world: int,
     (``local_world`` at most ``n_cards``) joins over NCCL on
     ``cuda:<local_rank>``; ranks that share cards join over gloo on
     ``cuda:<local_rank mod n_cards>``; the CPU joins over gloo."""
+    _check_device_type(device_type, n_cards)
     if device_type == "cpu":
         return "gloo", torch.device("cpu")
-    if device_type != "cuda":
-        raise ValueError(f"device type {device_type!r}: cuda or cpu")
-    if n_cards < 1:
-        raise ValueError("device type cuda, but no card is visible")
     if local_world <= n_cards:
         return NCCL, torch.device("cuda", local_rank)
     return "gloo", torch.device("cuda", local_rank % n_cards)
 
 
 def join(rank: int, world: int, init_method: str, *,
-         device_type: str = "cpu", local_rank: int = 0,
+         device_type: str = "cuda", local_rank: int = 0,
          local_world: Optional[int] = None,
          timeout_s: float = JOIN_TIMEOUT_S) -> Tuple[torch.device, str]:
     """Bind the process to its device and join the process group, as
     :func:`world_layout` lays them out for ``local_world`` ranks on this
-    machine (default: every rank of the world) → (device, backend)."""
+    machine (default: every rank of the world) → (device, backend).  On
+    the card unless the caller names ``"cpu"``; with no card it raises."""
     n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
     backend, device = world_layout(
         device_type, local_rank, world if local_world is None else local_world,
@@ -150,11 +164,12 @@ def join(rank: int, world: int, init_method: str, *,
     return device, backend
 
 
-def join_from_env(device_type: str = "cpu",
+def join_from_env(device_type: str = "cuda",
                   timeout_s: float = JOIN_TIMEOUT_S
                   ) -> Tuple[int, int, torch.device, str]:
-    """A ``torch.distributed.run`` worker joins its world: → (rank, world
-    size, device, backend)."""
+    """A ``torch.distributed.run`` worker joins its world, on the card
+    unless the caller names ``"cpu"``: → (rank, world size, device,
+    backend)."""
     env = os.environ
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     device, backend = join(

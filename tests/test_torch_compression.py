@@ -1,7 +1,7 @@
 """The port's device int8 codec (``repro_torch.dist.compression``):
-``tests/test_flash_compression.py``'s int8 tests on tensors, and its
-payloads and scales against the numpy codec and the JAX package's device
-codec, byte for byte."""
+``tests/test_flash_compression.py``'s int8 tests on tensors (error
+feedback included), and its payloads and scales against the numpy codec
+and the JAX package's device codec, byte for byte."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +11,7 @@ try:
 except ImportError:          # container without hypothesis: tiny shim
     from _hypothesis_fallback import given, settings, st
 
+from repro.dist.compression import dequantize_int8 as jdequantize_int8
 from repro.dist.compression import quantize_int8 as jquantize_int8
 from repro_torch.dist.compression import (
     compress_roundtrip_error,
@@ -73,3 +74,41 @@ def test_int8_payload_equals_numpy_codec_and_reference(n, block):
     if n >= 8:
         assert float(s[-1]) == 1.0
         assert q.reshape(-1)[n - 7:n].tolist() == [0, 2, 2, 0, -2, 4, -2]
+
+
+def _feedback_rounds(g, zeros, quantize, dequantize, rounds: int = 20):
+    """The reference test's loop, for either package: ``rounds`` int8
+    round trips of ``g`` with the quantization error fed back into the
+    next, and without → (sum with feedback, sum without)."""
+    err, acc_fb, acc_nofb = zeros, zeros, zeros
+    for _ in range(rounds):
+        q, s = quantize(g + err)
+        deq = dequantize(q, s, g.shape)
+        err = (g + err) - deq
+        acc_fb = acc_fb + deq
+        q2, s2 = quantize(g)
+        acc_nofb = acc_nofb + dequantize(q2, s2, g.shape)
+    return acc_fb, acc_nofb
+
+
+def test_error_feedback_reduces_bias():
+    """With feedback the accumulated quantization error stays bounded
+    instead of growing with the rounds (the reference's two bounds), and
+    both sums equal the JAX package's loop on the same gradient bit for
+    bit."""
+    rng = np.random.RandomState(0)
+    a = rng.randn(4096).astype(np.float32)
+    g = torch.from_numpy(a) * 1e-3
+    gj = jnp.asarray(a) * 1e-3
+    assert g.numpy().tobytes() == np.asarray(gj).tobytes()
+    acc_fb, acc_nofb = _feedback_rounds(g, torch.zeros_like(g),
+                                        quantize_int8, dequantize_int8)
+    true = g.numpy() * 20
+    err_fb = np.linalg.norm(acc_fb.numpy() - true)
+    err_nofb = np.linalg.norm(acc_nofb.numpy() - true)
+    assert err_fb <= err_nofb * 1.05
+    assert err_fb < np.linalg.norm(true) * 0.05
+    jfb, jnofb = _feedback_rounds(gj, jnp.zeros_like(gj), jquantize_int8,
+                                  jdequantize_int8)
+    assert acc_fb.numpy().tobytes() == np.asarray(jfb).tobytes()
+    assert acc_nofb.numpy().tobytes() == np.asarray(jnofb).tobytes()

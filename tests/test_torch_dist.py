@@ -471,7 +471,8 @@ def _deploy_worker(mode: str, d: str) -> None:
     from repro_torch.serve.engine import ServingEngine, WeightsHandle
 
     rank, _world, _device, _ = join_from_env("cpu")
-    mesh = make_mesh((2, 2) if mode == "train" else (1, 4))
+    mesh = make_mesh((2, 2) if mode == "train" else (1, 4), ("data", "model"),
+                     "cpu")
     sh = {"w": NamedSharding(mesh, P("data", MODEL)),
           "c": NamedSharding(mesh, P("data", MODEL))}
     res = {"rank": rank}

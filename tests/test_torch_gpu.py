@@ -321,6 +321,70 @@ def test_flash_gradient_matches_plain_autograd_on_card():
             assert float((a.grad - b.grad).abs().max()) <= 1e-4
 
 
+def _rising_logits(b, s, h, kv, dh, seed):
+    """q (B, S, H, dh), k, v (B, S, KV, dh) in f32 whose scores q·k/8 span
+    about ±512 and rise with the key: q and k are integers in [-31, 31]
+    (exact in bf16, so every partial sum of q·k is exact in f32 and the
+    kernels see the plain version's scores in any order of summation),
+    but dim 0, 32 in every query and rising from -88 to 88 over the keys
+    (a ramp of ±352); v is randn."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 6
+                ).round().clamp(-31, 31)
+    q, k = ints(b, s, h, dh), ints(b, s, kv, dh)
+    q[..., 0] = 32
+    k[..., 0] = torch.linspace(-88, 88, s, device="cuda").round()[None, :,
+                                                                   None]
+    return q, k, torch.randn(b, s, kv, dh, generator=g, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_hold_at_extreme_logits_on_card(causal):
+    """The reference's ``test_flash_extreme_logits_stable`` on both
+    kernels: (1, 128, 64), q = k = 8 (every score 512), v = 1, bq = bk =
+    64 gives 1 within rtol 1e-5 in f32 (flash_fwd_kernel) and one bf16 ulp
+    in bf16 (flash_tc_kernel).  Then scores of about ±512 whose row
+    maximum rises from one key tile to the next (the rescaling the
+    reference's equal scores never reach), at the training shape: bf16
+    through the grouped entry within one bf16 ulp of
+    flash_attention_gqa_ref, f32 through the BH entry within 2e-5 of
+    flash_attention_ref, two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        q = torch.full((1, 128, 64), 8.0, device="cuda", dtype=dtype)
+        o = fa.flash_attention(q, q, torch.ones_like(q), causal=causal,
+                               bq=64, bk=64)
+        torch.cuda.synchronize()
+        assert o.dtype == dtype
+        assert float((o.float() - 1.0).abs().max()) <= bound, dtype
+    b, s, h, kv, dh = 4, 2048, 32, 4, 64
+    q, k, v = _rising_logits(b, s, h, kv, dh, seed=5)
+    sc = q[0, :, 0].double() @ k[0, :, 0].double().T / 8
+    assert 400 < -float(sc.min()) < 600 and 400 < float(sc.max()) < 600
+    tile_max = sc.reshape(s, -1, 128).amax(-1)
+    rose = tile_max[:, 1:] > torch.cummax(tile_max, 1).values[:, :-1]
+    assert float(rose.double().mean()) > 0.9
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    got = fa.flash_attention_gqa(qb, kb, vb, causal=causal)
+    want = ref.flash_attention_gqa_ref(qb, kb, vb, causal=causal)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bf16_tolerance(want)).all()), float(err.max())
+    assert torch.equal(got, fa.flash_attention_gqa(qb, kb, vb, causal=causal))
+    del qb, kb, vb, got, want, err
+    qf, kf, vf = (fa.to_bh(x) for x in (q, ref.repeat_kv(k, h // kv),
+                                        ref.repeat_kv(v, h // kv)))
+    got = fa.flash_attention(qf, kf, vf, causal=causal)
+    want = ref.flash_attention_ref(qf, kf, vf, causal=causal)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got, fa.flash_attention(qf, kf, vf, causal=causal))
+
+
 @pytest.mark.gpu
 def test_reduced_training_on_card_goes_through_flash(tmp_path, monkeypatch):
     """Reduced tinyllama on the card with REPRO_ATTN_IMPL=flash: each step
@@ -1163,7 +1227,8 @@ def test_whisper_decode_over_cross_kv_on_card_matches_the_cpu():
 @pytest.mark.gpu
 def test_two_ranks_on_one_card_store_shard_locally_and_restore(tmp_path):
     """Two processes share the one card (gloo: NCCL refuses two ranks on
-    one GPU): reduced tinyllama on a (1, 2) mesh of ``DTensor`` leaves on
+    one GPU; on a machine of several cards only the first is made
+    visible): reduced tinyllama on a (1, 2) mesh of ``DTensor`` leaves on
     the card, FULL + sparse update + DIFF, then two new processes restore
     onto (2, 1).  The checkpoint path moves host bytes between the ranks
     (digests and dirty rows); what gloo itself takes on the card is
@@ -1171,26 +1236,11 @@ def test_two_ranks_on_one_card_store_shard_locally_and_restore(tmp_path):
     the rows written, and the launches are the design's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import json
-    import subprocess
-    import sys
-
     from repro_torch.launch.meshckpt import compare
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    common = ["--reduced", "--device", "cuda", "--block-bytes", "256",
-              "--dir", str(tmp_path / "ck"), "--out", str(tmp_path / "out")]
-    for argv in (["store", "--mesh", "1,2", "--targets", "2,1"],
-                 ["restore", "--mesh", "2,1", "--source-mesh", "1,2"]):
-        out = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", "2", "-m", "repro_torch.launch.meshckpt",
-             *argv, *common],
-            cwd=root, env=env, capture_output=True, text=True, timeout=300)
-        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
-    src, got = [[json.loads((tmp_path / "out" / f"{n}-rank{r}.json")
-                            .read_text()) for r in range(2)]
-                for n in ("store", "restore-2x1")]
+    one_card = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    src, got = _two_rank_store_restore(tmp_path, env=one_card)
+    for r in src + got:
+        assert r["process_group"] == "gloo" and r["card"] == 0
     for s in src:
         assert s["dirty_blocks"] == s["expected_dirty"]
         assert s["launches"] == s["designed_launches"]

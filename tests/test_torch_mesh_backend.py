@@ -11,9 +11,13 @@
   on gloo worlds on the card only.
 - ``join_from_env`` on the CPU makes a real gloo world and installs no
   override.
+- The world and mesh entry points default to the card: with no card
+  visible they raise, naming it, and work with ``"cpu"`` named; no line
+  of the module picks the device from ``torch.cuda.is_available()``.
 
 The JAX package has no counterpart: its meshes join no process group.
 """
+import inspect
 import os
 import socket
 import subprocess
@@ -174,3 +178,91 @@ def test_join_on_the_cpu_makes_a_gloo_world_without_the_override():
     assert out.stdout.split() == [
         "0", "1", "cpu", "gloo", "gloo", "True", "[1.0,", "1.0,", "1.0]",
         "(1,", "1)"]
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """The card hidden: ``torch.cuda`` sees none (and would fail if asked
+    to bind one)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture
+def one_process_world():
+    """A one-rank gloo world in this process, left at the end."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def _launcher_env(monkeypatch):
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                 "MASTER_PORT": "1"}.items():
+        monkeypatch.setenv(k, v)
+
+
+ENTRY_POINTS = {
+    "make_mesh": lambda: mesh.make_mesh((1, 1)),
+    "make_production_mesh": lambda: mesh.make_production_mesh(),
+    "join": lambda: mesh.join(0, 1, "tcp://localhost:1"),
+    "join_from_env": lambda: mesh.join_from_env(),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card_and_raise_without_one(
+        no_card, no_process_group, monkeypatch, entry):
+    """No device type named and no card visible: a ``ValueError`` that
+    names the card, before any process group or mesh is made."""
+    _launcher_env(monkeypatch)
+    with pytest.raises(ValueError, match="no card is visible") as err:
+        ENTRY_POINTS[entry]()
+    assert "cuda" in str(err.value) and "'cpu'" in str(err.value)
+    assert no_process_group["init"] == []
+    assert no_process_group["set_device"] == []
+
+
+def test_make_mesh_names_the_device_types_it_lays_out(no_card):
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mesh.make_mesh((1, 1), ("data", "model"), "mps")
+
+
+def test_join_and_join_from_env_on_the_cpu_named_need_no_card(
+        no_card, no_process_group, monkeypatch):
+    device, backend = mesh.join(0, 1, "tcp://localhost:1", device_type="cpu")
+    assert (device, backend) == (torch.device("cpu"), "gloo")
+    _launcher_env(monkeypatch)
+    rank, world, device, backend = mesh.join_from_env("cpu")
+    assert (rank, world, device, backend) == (0, 1, torch.device("cpu"),
+                                              "gloo")
+    assert [c["backend"] for c in no_process_group["init"]] == ["gloo"] * 2
+    assert no_process_group["set_device"] == []
+    assert no_process_group["override"] == 0
+
+
+def test_meshes_on_the_cpu_named_need_no_card(no_card, one_process_world):
+    """``make_mesh`` with ``"cpu"`` named, and ``make_host_mesh`` (the CPU
+    smoke mesh, whose default stays the CPU), on a world of one."""
+    for m in (mesh.make_mesh((1, 1), ("data", "model"), "cpu"),
+              mesh.make_host_mesh()):
+        assert m.device_type == "cpu"
+        assert tuple(m.mesh.shape) == (1, 1)
+        assert m.mesh_dim_names == ("data", "model")
+
+
+def test_no_device_choice_from_is_available():
+    """The module reads the card count where it must (``join``, the
+    mesh's check) and never takes the CPU because no card answered."""
+    src = inspect.getsource(mesh)
+    assert "is_available" not in src
+    for fn in (mesh.make_mesh, mesh.make_production_mesh, mesh.join,
+               mesh.join_from_env):
+        assert inspect.signature(fn).parameters[
+            "device_type"].default == "cuda"
+    assert inspect.signature(mesh.make_host_mesh).parameters[
+        "device_type"].default == "cpu"

@@ -104,6 +104,33 @@ def test_flash_ref_extreme_logits_stable():
 
 
 @pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_moving_maximum_at_extreme_logits_matches_pallas(causal):
+    """Scores of about ±512 whose row maximum rises from one key tile to
+    the next, so the online softmax rescales at every tile (the reference's
+    equal scores never do): the plain version against the Pallas kernel in
+    interpret mode, f32 within 2e-5.  q and k are integers (every partial
+    sum of q·k exact in f32), dim 0 a ramp: 32 in every query, -88 to 88
+    over the keys; the case ``chip_smoke.py`` and the ``gpu`` test hold
+    both Hopper kernels to."""
+    rng = np.random.RandomState(6)
+    bh, s, dh = 2, 256, 64
+    q, k = (np.clip(np.round(rng.randn(bh, s, dh) * 6), -31, 31)
+            .astype(np.float32) for _ in range(2))
+    q[..., 0] = 32
+    k[..., 0] = np.round(np.linspace(-88, 88, s))
+    v = rng.randn(bh, s, dh).astype(np.float32)
+    sc = np.einsum("bqd,bkd->bqk", q, k) / 8
+    assert 300 < -sc.min() and sc.max() > 300
+    tile_max = sc.reshape(bh, s, -1, 64).max(-1)
+    assert np.all(tile_max[..., 1:] > np.maximum.accumulate(
+        tile_max, axis=-1)[..., :-1])
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, bq=64, bk=64, interpret=True))
+    got = ops.flash_attention(t(q), t(k), t(v), causal=causal, bq=64, bk=64)
+    np.testing.assert_allclose(np_of(got), want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_flash_gradient_matches_jax_grad_of_blockwise(causal):
     """The autograd.Function (plain forward on the CPU, the exact backward
     in plain PyTorch) against jax.grad of the reference's
