@@ -25,6 +25,8 @@ import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
+from repro_torch.telemetry import trace as ttrace
+
 _LIVE: "weakref.WeakSet[CPDedicatedThread]" = weakref.WeakSet()
 
 
@@ -68,9 +70,10 @@ class CPDedicatedThread:
             item = self._q.get()
             if item is None:
                 return
-            fn, res = item
+            fn, res, cause = item
             try:
-                res.report = fn()
+                with ttrace.caused_by(cause):
+                    res.report = fn()
             except BaseException as e:   # noqa: BLE001 — surfaced later
                 res.error = e
                 with self._lock:
@@ -87,15 +90,19 @@ class CPDedicatedThread:
             return sum(0 if r.done.is_set() else 1 for r in self._results)
 
     def submit(self, ckpt_id: int, fn: Callable[[], Any]) -> AsyncResult:
+        """Queue ``fn`` behind the fence; the spans it opens on this thread
+        name the caller's open span (the store call) as their parent."""
         if not self._alive:
             raise RuntimeError("CP thread already shut down")
-        # fence: keep at most max_inflight pending
-        while self.inflight() >= self._max_inflight:
-            self._wait_one()
-        res = AsyncResult(ckpt_id, threading.Event())
-        with self._lock:
-            self._results.append(res)
-        self._q.put((fn, res))
+        cause = ttrace.current_id()
+        with ttrace.span("cp.submit", ckpt_id=ckpt_id):
+            # fence: keep at most max_inflight pending
+            while self.inflight() >= self._max_inflight:
+                self._wait_one()
+            res = AsyncResult(ckpt_id, threading.Event())
+            with self._lock:
+                self._results.append(res)
+            self._q.put((fn, res, cause))
         return res
 
     def _wait_one(self) -> None:

@@ -46,6 +46,7 @@ from repro_torch.core.pipeline import LoadRequest, StoreRequest
 from repro_torch.core.protect import Protect, normalize_protects
 from repro_torch.core.storage import CHK_DIFF, CHK_FULL, StorageConfig, StoreReport
 from repro_torch.core.tcl import TCL
+from repro_torch.telemetry import trace as ttrace
 
 __all__ = ["CheckpointContext", "CheckpointConfig", "CHK_FULL", "CHK_DIFF",
            "Protect"]
@@ -110,16 +111,20 @@ class CheckpointContext:
 
     def __init__(self, cfg: CheckpointConfig,
                  comm: Optional[Communicator] = None):
-        # the comm clause is mandatory in the paper; default to the
-        # single-process communicator with node-local storage under cfg.dir
-        self.comm = comm if comm is not None else LocalComm(
-            os.path.join(cfg.dir, "node-local"))
-        backend_kw = {}
-        # every backend accepts the CP-thread switch (base Backend ANDs it
-        # with the declared capability, so it is a no-op where unsupported)
-        if not cfg.dedicated_thread:
-            backend_kw["dedicated_thread"] = False
-        self.tcl = TCL(cfg.storage(), self.comm, cfg.backend, **backend_kw)
+        with ttrace.span("chk.init"):
+            # the comm clause is mandatory in the paper; default to the
+            # single-process communicator with node-local storage under
+            # cfg.dir
+            self.comm = comm if comm is not None else LocalComm(
+                os.path.join(cfg.dir, "node-local"))
+            backend_kw = {}
+            # every backend accepts the CP-thread switch (base Backend ANDs
+            # it with the declared capability, so it is a no-op where
+            # unsupported)
+            if not cfg.dedicated_thread:
+                backend_kw["dedicated_thread"] = False
+            self.tcl = TCL(cfg.storage(), self.comm, cfg.backend,
+                           **backend_kw)
         self.cfg = cfg
         self._protects: Optional[List[Protect]] = None
         self._open = True
@@ -153,8 +158,9 @@ class CheckpointContext:
         self._check_open()
         if not if_:
             return state
-        restored = self.tcl.load(LoadRequest(
-            template=state, protects=self._protects))
+        with ttrace.span("chk.load"):
+            restored = self.tcl.load(LoadRequest(
+                template=state, protects=self._protects))
         if restored is None:
             return state
         self.restarted = True
@@ -168,9 +174,11 @@ class CheckpointContext:
         self._check_open()
         if not if_:
             return None
-        self.last_report = self.tcl.store(StoreRequest(
-            tree=state, ckpt_id=int(id), level=int(level), kind=kind,
-            protects=self._protects))
+        with ttrace.span("chk.store", ckpt_id=int(id), level=int(level),
+                         kind=kind):
+            self.last_report = self.tcl.store(StoreRequest(
+                tree=state, ckpt_id=int(id), level=int(level), kind=kind,
+                protects=self._protects))
         return self.last_report
 
     def store_begin(self, *, id: int, level: int,
@@ -194,7 +202,8 @@ class CheckpointContext:
     def shutdown(self) -> None:
         """``chk shutdown``."""
         if self._open:
-            self.tcl.finalize()
+            with ttrace.span("chk.shutdown"):
+                self.tcl.finalize()
             self._open = False
 
     # ------------------------------------------------------------------ #

@@ -537,6 +537,9 @@ class ChainReplay:
     def __contains__(self, name: str) -> bool:
         return name in self._leaves
 
+    def __len__(self) -> int:
+        return len(self._leaves)
+
     def start(self, name: str, base: np.ndarray, block_bytes: int) -> None:
         """Replay leaf ``name`` from its FULL base."""
         self._leaves[name] = _LeafReplay(base, block_bytes)

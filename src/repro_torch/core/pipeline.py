@@ -70,7 +70,13 @@ from repro_torch.core.diff import (
     u32_flat_to_leaf,
 )
 from repro_torch.core.formats import CHK5Reader, CHK5Writer
-from repro_torch.core.protect import CHK_DIFF, CHK_FULL, Protect, to_host
+from repro_torch.core.protect import (
+    CHK_DIFF,
+    CHK_FULL,
+    Protect,
+    tensor_bytes,
+    to_host,
+)
 from repro_torch.core.resharding import (
     ShardedLeafRef,
     ShardSnapshot,
@@ -361,12 +367,14 @@ class CheckpointPipeline:
             owed = [p for p in full_paths if p not in promoted_set]
             digests = None
             if req.diff_supported and owed:
-                digests = self.diff.launch_digests(
-                    {p: named[p] for p in owed if p not in sharded_paths})
-                parts = self._parts(named, owed, sharded_paths)
-                if parts:
-                    self.diff.commit_sharded_digests(
-                        self.diff.sharded_digests(parts, exchange))
+                with ttrace.span("plan.digests", ckpt_id=req.ckpt_id):
+                    digests = self.diff.launch_digests(
+                        {p: named[p] for p in owed
+                         if p not in sharded_paths})
+                    parts = self._parts(named, owed, sharded_paths)
+                    if parts:
+                        self.diff.commit_sharded_digests(
+                            self.diff.sharded_digests(parts, exchange))
             # shard-local snapshot: a sharded leaf contributes the box this
             # rank owns, never a gathered global array (the no-gather store
             # path); every other leaf is one host snapshot
@@ -374,7 +382,11 @@ class CheckpointPipeline:
                 {p: named[p] for p in full_paths},
                 enabled=self.cfg.sharded_store, gather=exchange)
             sharded = sharded or None
-            named_host = to_host(gather) if gather else {}
+            with ttrace.span("plan.d2h", ckpt_id=req.ckpt_id,
+                             memory="pageable") as sp:
+                named_host = to_host(gather) if gather else {}
+                if sp.id is not None:
+                    sp.set(bytes=tensor_bytes(gather or {}))
             if digests is not None:
                 self.diff.commit_digests(digests)
         self.last_plan_inventory = {
@@ -730,14 +742,15 @@ class CheckpointPipeline:
             if peer is not None:
                 roots.append(os.path.join(peer, "ckpts"))
         out = []
-        for root in roots:
-            for i in mf.list_committed(root):
-                out.append((i, root))
-        # discovery beyond directory scans: the objstore tier answers from
-        # its catalog, so a run whose dirs are wiped still finds what the
-        # object store holds
-        for tier in self.ladder:
-            out.extend(tier.list_ids())
+        with ttrace.span("restore.scan"):
+            for root in roots:
+                for i in mf.list_committed(root):
+                    out.append((i, root))
+            # discovery beyond directory scans: the objstore tier answers
+            # from its catalog, so a run whose dirs are wiped still finds
+            # what the object store holds
+            for tier in self.ladder:
+                out.extend(tier.list_ids())
         return sorted(set(out))
 
     def recover_payload(self, root: str, ckpt_id: int, rank: int
@@ -754,15 +767,19 @@ class CheckpointPipeline:
         if isinstance(world, int) and 0 < world <= rank:
             rank %= world
         dirs = self.ctx.recovery_dirs(root, ckpt_id)   # scanned once, shared
-        for tier in self.ladder:
-            blob = tier.recover(ckpt_id, rank, root, man, dirs)
-            if blob is not None:
-                if not man:
-                    # a catalog-backed tier materializes the checkpoint
-                    # dir (manifest included) during recover — re-read so
-                    # the restore walk sees kind/level/file coverage
-                    man = mf.try_read_manifest(root, ckpt_id) or {}
-                return blob, man, tier.name
+        with ttrace.span("restore.read", ckpt_id=ckpt_id) as sp:
+            for tier in self.ladder:
+                blob = tier.recover(ckpt_id, rank, root, man, dirs)
+                if blob is not None:
+                    if not man:
+                        # a catalog-backed tier materializes the checkpoint
+                        # dir (manifest included) during recover — re-read
+                        # so the restore walk sees kind/level/file coverage
+                        man = mf.try_read_manifest(root, ckpt_id) or {}
+                    tmetrics.counter("openchk_restore_read_bytes_total",
+                                     tier=tier.name).inc(len(blob))
+                    sp.set(tier=tier.name, bytes=len(blob))
+                    return blob, man, tier.name
         return None
 
     def load_latest(self, rank: Optional[int] = None,
@@ -811,7 +828,9 @@ class CheckpointPipeline:
                 continue
             if got is not None:
                 named, replay, meta = got
-                named.update(replay.run(devices))
+                if len(replay):
+                    with ttrace.span("restore.replay", ckpt_id=ckpt_id):
+                        named.update(replay.run(devices))
                 if not lazy_sharded:
                     named = {k: (v.materialize()
                                  if isinstance(v, ShardedLeafRef) else v)
@@ -868,67 +887,75 @@ class CheckpointPipeline:
         meta_shape: Dict[str, Tuple[str, List[int]]] = {}
         bb = None
         for link, (blob, man, root) in enumerate(chain):
-            bb = man.get("block_bytes", self.cfg.block_bytes)
-            ckid = man.get("id", ckpt_id)
-            rd = CHK5Reader(io.BytesIO(blob))
-            # one pass handles FULL, DIFF *and* mixed containers: a full
-            # (or sharded) dataset supersedes any older delta replay of the
-            # same leaf, a delta replays onto whatever base the chain built
-            # so far.  Sharded leaves resolve their chunk files first: an
-            # incomplete shard set (crash-lost / pruned file) makes this
-            # checkpoint non-restorable and the walk falls back.
-            refs = resolve_shard_refs(
-                rd, self.ctx.recovery_dirs(root, ckid), rank)
-            if refs is None:
-                rd.close()
-                warnings.warn(
-                    f"checkpoint {ckid}: incomplete shard set (rank {rank}); "
-                    "falling back to older id", RuntimeWarning)
-                return None
-            for name, ref in refs.items():
-                named[name] = ref
-                flat_u32.pop(name, None)
-                replay.drop(name)
-                meta_shape.pop(name, None)
-            for ds in rd.datasets():
-                if ds.startswith("data/"):
-                    name = ds[len("data/"):]
-                    named[name] = decode_leaf(rd, ds)
+            with ttrace.span("restore.decode",
+                             ckpt_id=man.get("id", ckpt_id), link=link):
+                bb = man.get("block_bytes", self.cfg.block_bytes)
+                ckid = man.get("id", ckpt_id)
+                rd = CHK5Reader(io.BytesIO(blob))
+                # one pass handles FULL, DIFF *and* mixed containers: a
+                # full (or sharded) dataset supersedes any older delta
+                # replay of the same leaf, a delta replays onto whatever
+                # base the chain built so far.  Sharded leaves resolve their
+                # chunk files first: an incomplete shard set (crash-lost /
+                # pruned file) makes this checkpoint non-restorable and the
+                # walk falls back.
+                refs = resolve_shard_refs(
+                    rd, self.ctx.recovery_dirs(root, ckid), rank)
+                if refs is None:
+                    rd.close()
+                    warnings.warn(
+                        f"checkpoint {ckid}: incomplete shard set "
+                        f"(rank {rank}); falling back to older id",
+                        RuntimeWarning)
+                    return None
+                for name, ref in refs.items():
+                    named[name] = ref
                     flat_u32.pop(name, None)
                     replay.drop(name)
                     meta_shape.pop(name, None)
-                elif ds.startswith("delta/") and ds.endswith("/digest"):
-                    name = ds[len("delta/"): -len("/digest")]
-                    info = rd.info(ds)["attrs"]
-                    idx = rd.read_dataset(f"delta/{name}/idx")
-                    blocks = rd.read_dataset(f"delta/{name}/blocks")
-                    dt, shp = info["dtype"], info["shape"]
-                    if (lazy_sharded and name not in devices
-                            and isinstance(named.get(name), ShardedLeafRef)):
-                        # replayed box by box when the leaf is read (each
-                        # rank of a mesh reads only its own box)
-                        named[name].add_delta(idx, blocks, bb)
+                for ds in rd.datasets():
+                    if ds.startswith("data/"):
+                        name = ds[len("data/"):]
+                        named[name] = decode_leaf(rd, ds)
+                        flat_u32.pop(name, None)
+                        replay.drop(name)
                         meta_shape.pop(name, None)
-                        continue
-                    if name not in flat_u32 and name not in replay:
-                        if name not in named:
-                            return None     # chain broken
-                        if isinstance(named[name], ShardedLeafRef):
-                            # delta replay needs the flat base: the one
-                            # path that materializes a sharded leaf (on the
-                            # host; ChainReplay places it on its device)
-                            named[name] = named[name].materialize()
-                        if devices.get(name) is not None:
-                            replay.start(name, named[name], bb)
+                    elif (ds.startswith("delta/")
+                          and ds.endswith("/digest")):
+                        name = ds[len("delta/"): -len("/digest")]
+                        info = rd.info(ds)["attrs"]
+                        idx = rd.read_dataset(f"delta/{name}/idx")
+                        blocks = rd.read_dataset(f"delta/{name}/blocks")
+                        dt, shp = info["dtype"], info["shape"]
+                        if (lazy_sharded and name not in devices
+                                and isinstance(named.get(name),
+                                               ShardedLeafRef)):
+                            # replayed box by box when the leaf is read
+                            # (each rank of a mesh reads only its own box)
+                            named[name].add_delta(idx, blocks, bb)
+                            meta_shape.pop(name, None)
+                            continue
+                        if name not in flat_u32 and name not in replay:
+                            if name not in named:
+                                return None     # chain broken
+                            if isinstance(named[name], ShardedLeafRef):
+                                # delta replay needs the flat base: the
+                                # one path that materializes a sharded leaf
+                                # (on the host; ChainReplay places it on
+                                # its device)
+                                named[name] = named[name].materialize()
+                            if devices.get(name) is not None:
+                                replay.start(name, named[name], bb)
+                            else:
+                                flat_u32[name] = leaf_to_u32_flat(
+                                    named[name], bb)
+                        if name in replay:
+                            replay.add(name, link, idx, blocks, bb, dt, shp)
                         else:
-                            flat_u32[name] = leaf_to_u32_flat(named[name], bb)
-                    if name in replay:
-                        replay.add(name, link, idx, blocks, bb, dt, shp)
-                    else:
-                        flat_u32[name] = apply_delta(flat_u32[name], idx,
-                                                     blocks, bb)
-                    meta_shape[name] = (dt, shp)
-            rd.close()
+                            flat_u32[name] = apply_delta(
+                                flat_u32[name], idx, blocks, bb)
+                        meta_shape[name] = (dt, shp)
+                rd.close()
         for name, buf in flat_u32.items():
             dt, shp = meta_shape[name]
             named[name] = u32_flat_to_leaf(buf, dt, shp)

@@ -38,6 +38,7 @@ from repro_torch.core.formats import (
     torch_dtype_to_str,
     dtype_to_str,
 )
+from repro_torch.telemetry import metrics as tmetrics
 
 CHK_FULL = "FULL"
 CHK_DIFF = "DIFF"
@@ -299,14 +300,25 @@ def to_host(named: Dict[str, Any]) -> Dict[str, np.ndarray]:
     Each tensor is copied synchronously (``Tensor.to("cpu")`` waits for
     the copy), so the snapshot is complete when this returns: an in-place
     update the caller makes afterwards cannot reach it.  CPU tensors and
-    numpy leaves are copied as well, for the same reason."""
+    numpy leaves are copied as well, for the same reason.  The tensors'
+    bytes count in ``openchk_d2h_bytes_total`` (:func:`tensor_bytes`)."""
     out: Dict[str, np.ndarray] = {}
     for k, v in named.items():
         if isinstance(v, torch.Tensor):
             out[k] = tensor_to_numpy(v)
         else:
             out[k] = np.array(v, copy=True)
+    n = tensor_bytes(named)
+    if n:
+        tmetrics.counter("openchk_d2h_bytes_total",
+                         memory="pageable").inc(n)
     return out
+
+
+def tensor_bytes(named: Dict[str, Any]) -> int:
+    """Bytes of the tensors among ``named``'s leaves."""
+    return sum(v.nbytes for v in named.values()
+               if isinstance(v, torch.Tensor))
 
 
 def from_numpy_named(named_np: Dict[str, np.ndarray],

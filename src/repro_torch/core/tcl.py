@@ -57,6 +57,8 @@ from repro_torch.core.resharding import (
     sharding_of,
 )
 from repro_torch.core.storage import CHK_FULL, StorageConfig, StoreReport
+from repro_torch.telemetry import metrics as tmetrics
+from repro_torch.telemetry import trace as ttrace
 
 
 class TCL:
@@ -108,39 +110,48 @@ class TCL:
         if restored is None:
             return None
         merged: Dict[str, Any] = {}
-        for path, leaf in named_t.items():
-            if path not in req.specs:
-                merged[path] = leaf
-                continue
-            if path not in restored:
-                raise KeyError(f"checkpoint missing protected leaf {path!r}")
-            arr = restored[path]
-            if list(arr.shape) != list(np.shape(leaf)):
-                raise ValueError(
-                    f"{path}: checkpoint shape {arr.shape} != "
-                    f"template {tuple(np.shape(leaf))} (use elastic restore)")
-            got_dt = (dtype_to_str(arr.dtype)
-                      if isinstance(arr, ShardedLeafRef)
-                      else leaf_dtype_str(arr))
-            if got_dt != leaf_dtype_str(leaf):
-                raise TypeError(
-                    f"{path}: checkpoint dtype {got_dt} != "
-                    f"template {leaf_dtype_str(leaf)}")
-            if is_dtensor(leaf):
-                # the template's layout is the target: this rank's box
-                merged[path] = assemble_onto(arr, sharding_of(leaf))
-                continue
-            if isinstance(arr, ShardedLeafRef):
-                arr = arr.materialize()      # one read into host memory
-            # the counterpart of jax.device_put(arr, template sharding):
-            # the template leaf's device is the target
-            if isinstance(arr, torch.Tensor):
-                # replayed on the template's device: already in place
-                merged[path] = arr.to(leaf.device)
-            elif isinstance(leaf, torch.Tensor):
-                merged[path] = numpy_to_tensor(arr, leaf.device)
-            else:
-                merged[path] = arr
+        placed = 0                  # bytes of host arrays put on a device
+        with ttrace.span("restore.h2d", memory="pageable") as sp:
+            for path, leaf in named_t.items():
+                if path not in req.specs:
+                    merged[path] = leaf
+                    continue
+                if path not in restored:
+                    raise KeyError(
+                        f"checkpoint missing protected leaf {path!r}")
+                arr = restored[path]
+                if list(arr.shape) != list(np.shape(leaf)):
+                    raise ValueError(
+                        f"{path}: checkpoint shape {arr.shape} != "
+                        f"template {tuple(np.shape(leaf))} "
+                        "(use elastic restore)")
+                got_dt = (dtype_to_str(arr.dtype)
+                          if isinstance(arr, ShardedLeafRef)
+                          else leaf_dtype_str(arr))
+                if got_dt != leaf_dtype_str(leaf):
+                    raise TypeError(
+                        f"{path}: checkpoint dtype {got_dt} != "
+                        f"template {leaf_dtype_str(leaf)}")
+                if is_dtensor(leaf):
+                    # the template's layout is the target: this rank's box
+                    merged[path] = assemble_onto(arr, sharding_of(leaf))
+                    continue
+                if isinstance(arr, ShardedLeafRef):
+                    arr = arr.materialize()      # one read into host memory
+                # the counterpart of jax.device_put(arr, template sharding):
+                # the template leaf's device is the target
+                if isinstance(arr, torch.Tensor):
+                    # replayed on the template's device: already in place
+                    merged[path] = arr.to(leaf.device)
+                elif isinstance(leaf, torch.Tensor):
+                    merged[path] = numpy_to_tensor(arr, leaf.device)
+                    placed += arr.nbytes
+                else:
+                    merged[path] = arr
+            if placed:
+                tmetrics.counter("openchk_h2d_bytes_total",
+                                 memory="pageable").inc(placed)
+            sp.set(bytes=placed)
         return unflatten_named(merged, req.template)
 
     def wait(self) -> None:

@@ -37,7 +37,17 @@ openchk_worker_restarts_total             counter    —
 openchk_mttr_seconds                      histogram  —
 openchk_mtbf_estimate_seconds             gauge      —
 openchk_cadence_interval_seconds          gauge      level
+openchk_d2h_bytes_total                   counter    memory
+openchk_h2d_bytes_total                   counter    memory
+openchk_restore_read_bytes_total          counter    tier
 ========================================  =========  =======================
+
+The copy counters count the bytes of every tensor the store's snapshot
+copies to the host (``d2h``: ``core/protect.to_host``) and of every host
+array a restore places on a template leaf's device (``h2d``:
+``core/tcl.TCL.load``); ``memory`` names the host side's memory,
+``pageable`` or ``pinned``.  ``openchk_restore_read_bytes_total`` counts
+the container bytes a restore read, by the tier that gave them.
 """
 from __future__ import annotations
 

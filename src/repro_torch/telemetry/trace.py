@@ -13,7 +13,11 @@ is switched on.
 
 Event model (the subset of the Chrome trace-event format perfetto loads):
 
-- ``B``/``E`` duration pairs per (pid, tid) — spans nest per thread track
+- ``B``/``E`` duration pairs per (pid, tid) — spans nest per thread track;
+  a ``B`` carries its ``span_id`` and, under ``parent``, the id of the
+  span that caused it (the innermost span open on its thread, or the one
+  a hand-off to another thread named: :func:`caused_by`); an ``E`` carries
+  the args that :meth:`Span.set` gave after the span opened
 - ``i`` instant events (chaos fault fires, deploy swaps, train resume)
 - ``M`` metadata events naming the process and each thread track
 
@@ -40,6 +44,7 @@ timebase that lines up across processes when files are merged.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import sys
@@ -80,6 +85,9 @@ class _NullSpan:
     def event(self, name: str, **args: Any) -> None:
         return None
 
+    def set(self, **args: Any) -> None:
+        return None
+
 
 NULL_SPAN = _NullSpan()
 
@@ -89,9 +97,9 @@ class Span:
 
     Spans are thread-affine (B/E pairs nest per tid), which is exactly the
     Chrome trace-event contract — cross-thread stages (Plan on the caller,
-    the tail on the CP thread) are separate spans correlated by args."""
+    the tail on the CP thread) are separate spans joined by ``parent``."""
 
-    __slots__ = ("tracer", "name", "id", "_tid", "_done")
+    __slots__ = ("tracer", "name", "id", "_tid", "_done", "_args")
 
     def __init__(self, tracer: "Tracer", name: str, span_id: int, tid: int):
         self.tracer = tracer
@@ -99,6 +107,7 @@ class Span:
         self.id = span_id
         self._tid = tid
         self._done = False
+        self._args: Optional[Dict[str, Any]] = None
 
     def __enter__(self) -> "Span":
         return self
@@ -106,16 +115,45 @@ class Span:
     def __exit__(self, *exc) -> None:
         self.end()
 
+    def set(self, **args: Any) -> None:
+        """Args known only once the span's work is done (bytes read);
+        they ride the ``E`` event."""
+        self._args = dict(self._args or {}, **_clean_args(args))
+
     def end(self) -> None:
         if self._done:
             return
         self._done = True
-        self.tracer._record({"ph": "E", "ts": _now_us(),
-                             "pid": os.getpid(), "tid": self._tid})
+        _pop(self.id)
+        ev: Dict[str, Any] = {"ph": "E", "ts": _now_us(),
+                              "pid": os.getpid(), "tid": self._tid}
+        if self._args:
+            ev["args"] = self._args
+        self.tracer._record(ev)
 
     def event(self, name: str, **args: Any) -> None:
         """An instant inside this span's track."""
         self.tracer.instant(name, **args)
+
+
+#: per thread, the ids of its open spans (and of a span that handed it
+#: work, :func:`caused_by`), innermost last; touched only while tracing
+_OPEN = threading.local()
+
+
+def _stack() -> List[int]:
+    st = getattr(_OPEN, "ids", None)
+    if st is None:
+        st = _OPEN.ids = []
+    return st
+
+
+def _pop(span_id: int) -> None:
+    st = _stack()
+    if st and st[-1] == span_id:
+        st.pop()
+    elif span_id in st:
+        st.remove(span_id)
 
 
 class Tracer:
@@ -211,10 +249,11 @@ class Tracer:
         ev: Dict[str, Any] = {"ph": "B", "name": name, "cat": cat,
                               "ts": _now_us(), "pid": os.getpid(),
                               "tid": tid}
-        if args:
-            ev["args"] = dict(_clean_args(args), span_id=sid)
-        else:
-            ev["args"] = {"span_id": sid}
+        ev["args"] = dict(_clean_args(args), span_id=sid)
+        st = _stack()
+        if st:
+            ev["args"]["parent"] = st[-1]
+        st.append(sid)
         self._record(ev)
         return Span(self, name, sid, tid)
 
@@ -297,6 +336,31 @@ def instant(name: str, cat: str = "openchk", **args: Any) -> None:
     if not _TRACER.enabled and _TRACER._env_checked:
         return
     _TRACER.instant(name, cat=cat, **args)
+
+
+def current_id() -> Optional[int]:
+    """Id of the innermost span open on this thread (None when tracing is
+    off or none is open): what a hand-off to another thread passes on."""
+    if not _TRACER.enabled:
+        return None
+    st = _stack()
+    return st[-1] if st else None
+
+
+@contextlib.contextmanager
+def caused_by(span_id: Optional[int]):
+    """Spans opened on this thread inside the block (and not inside
+    another of its spans) record ``span_id`` as their ``parent``: the
+    CP thread's tail names the store call that submitted it."""
+    if span_id is None:
+        yield
+        return
+    st = _stack()
+    st.append(span_id)
+    try:
+        yield
+    finally:
+        _pop(span_id)
 
 
 def export(path: str, clear: bool = False) -> str:

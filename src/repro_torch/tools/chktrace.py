@@ -4,6 +4,11 @@ an OpenCHK telemetry trace.
 The trace plane (repro_torch.telemetry.trace) exports Chrome trace-event JSON;
 perfetto renders it, this tool *answers questions* about it:
 
+- **directive calls** — per ``chk.*`` span (init, store, load,
+  shutdown): its duration and the time of each span under it, the CP
+  thread's tail included (it names the store call as its ``parent``): a
+  restore's scan, read, decode, replay and H2D, a store's Plan, digests,
+  D2H and hand-off;
 - **store critical path** — per ``pipeline.store`` span: total duration,
   the dominant stage (plan/pack/place/commit) and, within Place, the
   dominant tier — CRAFT's per-phase overhead accounting read straight
@@ -52,18 +57,27 @@ def load_events(path: str) -> List[Dict[str, Any]]:
 
 def build_spans(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     """Pair B/E events per (pid, tid) stack → closed spans with
-    ``dur_us`` and parent links (the trace-event nesting contract)."""
+    ``dur_us`` and parent links: the ``parent`` arg where the tracer
+    recorded one (a CP thread's tail names the store call that submitted
+    it), else the trace-event nesting contract.  An ``E`` event's args
+    join its span's."""
     spans: List[Dict[str, Any]] = []
     stacks: Dict[tuple, List[Dict[str, Any]]] = {}
+    by_id: Dict[tuple, Dict[str, Any]] = {}
     for ev in sorted(events, key=lambda e: e.get("ts", 0)):
         key = (ev.get("pid"), ev.get("tid"))
         if ev.get("ph") == "B":
             sp = {"name": ev.get("name"), "ts": ev["ts"], "pid": ev.get("pid"),
-                  "tid": ev.get("tid"), "args": ev.get("args", {}),
+                  "tid": ev.get("tid"), "args": dict(ev.get("args", {})),
                   "children": [], "dur_us": None}
             stack = stacks.setdefault(key, [])
-            if stack:
-                stack[-1]["children"].append(sp)
+            parent = by_id.get((sp["pid"], sp["args"].get("parent")))
+            if parent is None and stack:
+                parent = stack[-1]
+            if parent is not None:
+                parent["children"].append(sp)
+            if "span_id" in sp["args"]:
+                by_id[(sp["pid"], sp["args"]["span_id"])] = sp
             stack.append(sp)
             spans.append(sp)
         elif ev.get("ph") == "E":
@@ -71,6 +85,7 @@ def build_spans(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             if stack:
                 sp = stack.pop()
                 sp["dur_us"] = ev["ts"] - sp["ts"]
+                sp["args"].update(ev.get("args", {}))
     return [s for s in spans if s["dur_us"] is not None]
 
 
@@ -100,6 +115,30 @@ def store_critical_paths(spans: List[Dict[str, Any]]
                 row["dominant_tier"] = tier["args"]["tier"]
         out.append(row)
     return out
+
+
+def directive_calls(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Per directive call (``chk.init``, ``chk.store``, ``chk.load``,
+    ``chk.shutdown``): its duration and the time of every span under it by
+    name — a store's ``pipeline.plan``, ``plan.digests``, ``plan.d2h``,
+    ``cp.submit`` and the CP thread's tail it caused; a load's
+    ``restore.scan``, ``.read``, ``.decode``, ``.replay`` and ``.h2d``.
+    Nested spans count in their own name and in each ancestor's."""
+    out = []
+    for sp in spans:
+        if not (sp["name"] or "").startswith("chk."):
+            continue
+        within: Dict[str, int] = {}
+        todo = list(sp["children"])
+        while todo:
+            c = todo.pop()
+            if c["dur_us"] is not None:
+                within[c["name"]] = within.get(c["name"], 0) + c["dur_us"]
+            todo.extend(c["children"])
+        out.append({"name": sp["name"], "ckpt_id": sp["args"].get("ckpt_id"),
+                    "ts": sp["ts"], "dur_us": sp["dur_us"],
+                    "within_us": within})
+    return sorted(out, key=lambda r: r["ts"])
 
 
 def goodput_timeline(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
@@ -155,6 +194,7 @@ def summarize(path: str) -> Dict[str, Any]:
                              if e.get("pid") is not None}),
         "instants": instants,
         "stores": store_critical_paths(spans),
+        "directives": directive_calls(spans),
         "goodput": goodput_timeline(spans),
         "mttr": mttr_from_trace(events),
     }
@@ -187,6 +227,11 @@ def _human(s: Dict[str, Any]) -> str:
             f"  store ckpt={st['ckpt_id']} L{st['level']} {st['kind']}: "
             f"{(st['dur_us'] or 0) / 1e3:.1f}ms "
             f"dominant={st['dominant_stage']}{extra}")
+    for d in s["directives"]:
+        inner = ", ".join(f"{k} {v / 1e3:.1f}" for k, v in
+                          sorted(d["within_us"].items()))
+        lines.append(f"  {d['name']}: {d['dur_us'] / 1e3:.1f}ms"
+                     + (f" ({inner} ms)" if inner else ""))
     if s["goodput"]:
         total = sum(g["bytes"] or 0 for g in s["goodput"])
         span_s = s["goodput"][-1]["t_us"] / 1e6 or 1e-9

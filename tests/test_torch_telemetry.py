@@ -209,6 +209,182 @@ def test_traced_store_span_tree_and_metrics_parity(tmp_path):
     assert tmetrics.counter("openchk_chunks_uploaded_total").value >= 1
 
 
+def _restart(tmp_path, trace_on):
+    """A FULL store handed to the CP thread, the context shut down, a
+    fresh one restoring into an empty template: the benchmark's restart
+    cell at the CPU's size → (state, report, container bytes)."""
+    import torch
+    from repro_torch.core.context import CheckpointConfig, CheckpointContext
+
+    cfg = CheckpointConfig(dir=str(tmp_path / "ckpt"), backend="fti",
+                           dedicated_thread=True, objstore=False)
+    state = {"params": {"w": torch.arange(1 << 14, dtype=torch.float32),
+                        "b": torch.ones(100, dtype=torch.bfloat16)},
+             "step": torch.tensor(3)}
+    if trace_on:
+        ttrace.enable()
+    reports = []
+    ctx = CheckpointContext(cfg).observe_store_reports(reports.append)
+    ctx.store(state, id=3, level=1)
+    ctx.shutdown()
+    ctx = CheckpointContext(cfg)
+    got = ctx.load({"params": {k: torch.zeros_like(v) for k, v in
+                               state["params"].items()},
+                    "step": torch.tensor(0)})
+    ctx.shutdown()
+    for k in ("w", "b"):
+        assert torch.equal(got["params"][k], state["params"][k])
+    (report,) = reports
+    container = tmp_path / "ckpt" / "node-local" / "ckpts" / "ckpt-3" / \
+        "rank0.chk5"
+    return state, report, container.stat().st_size
+
+
+def _counter(name, **labels):
+    return tmetrics.counter(name, **labels).value
+
+
+def test_traced_restart_span_tree_parent_links_and_counters(tmp_path):
+    state, report, container = _restart(tmp_path, trace_on=True)
+    events = ttrace.tracer().events()
+    for tid in {e["tid"] for e in events}:
+        track = [e["ph"] for e in events if e["tid"] == tid]
+        assert track.count("B") == track.count("E")
+    spans = chktrace.build_spans(events)
+    assert len(spans) == sum(e["ph"] == "B" for e in events)
+
+    def one(name):
+        (sp,) = [s for s in spans if s["name"] == name]
+        return sp
+
+    def kids(sp):
+        return {c["name"] for c in sp["children"]}
+
+    store, plan, tail = one("chk.store"), one("pipeline.plan"), \
+        one("pipeline.store")
+    assert store["args"]["ckpt_id"] == 3
+    assert kids(store) == {"pipeline.plan", "cp.submit", "pipeline.store"}
+    assert kids(plan) == {"plan.digests", "plan.d2h"}
+    # the CP thread's tail names the store call that submitted it
+    assert tail["tid"] != store["tid"]
+    assert tail["args"]["parent"] == store["args"]["span_id"]
+    assert report.span_id == tail["args"]["span_id"]
+    assert {"pipeline.pack", "pipeline.place", "pipeline.commit"} <= \
+        kids(tail)
+    inits = [s for s in spans if s["name"] == "chk.init"]
+    downs = [s for s in spans if s["name"] == "chk.shutdown"]
+    assert len(inits) == len(downs) == 2
+    assert store["ts"] < downs[0]["ts"] < inits[1]["ts"]
+    load = one("chk.load")
+    assert inits[1]["ts"] < load["ts"] < downs[1]["ts"]
+    assert kids(load) == {"restore.scan", "restore.read", "restore.decode",
+                          "restore.h2d"}       # no DIFF link: no replay
+
+    # the counters count what the spans carry: the tensors' bytes each
+    # way, the container's bytes read
+    leaf_bytes = sum(v.nbytes for v in
+                     (*state["params"].values(), state["step"]))
+    assert one("plan.d2h")["args"]["bytes"] == leaf_bytes
+    assert one("restore.h2d")["args"]["bytes"] == leaf_bytes
+    read = one("restore.read")["args"]
+    assert read["bytes"] == container == report.bytes_payload
+    assert read["tier"] == "local"
+    assert _counter("openchk_d2h_bytes_total", memory="pageable") == \
+        leaf_bytes
+    assert _counter("openchk_h2d_bytes_total", memory="pageable") == \
+        leaf_bytes
+    assert _counter("openchk_restore_read_bytes_total", tier="local") == \
+        container
+    text = tmetrics.to_prometheus()
+    assert f'openchk_restore_read_bytes_total{{tier="local"}} ' \
+        f'{float(container)}' in text
+
+    # chktrace puts each directive call's inner time under its name
+    calls = chktrace.directive_calls(spans)
+    assert [c["name"] for c in calls] == [
+        "chk.init", "chk.store", "chk.shutdown", "chk.init", "chk.load",
+        "chk.shutdown"]
+    assert {"plan.d2h", "cp.submit", "pipeline.pack"} <= \
+        set(calls[1]["within_us"])
+    assert set(calls[4]["within_us"]) == kids(load)
+
+
+def test_disabled_tracing_records_nothing_while_counters_count(tmp_path):
+    state, report, container = _restart(tmp_path, trace_on=False)
+    assert ttrace.tracer().events() == []
+    assert ttrace.current_id() is None
+    leaf_bytes = sum(v.nbytes for v in
+                     (*state["params"].values(), state["step"]))
+    assert _counter("openchk_d2h_bytes_total", memory="pageable") == \
+        leaf_bytes
+    assert _counter("openchk_h2d_bytes_total", memory="pageable") == \
+        leaf_bytes
+    assert _counter("openchk_restore_read_bytes_total", tier="local") == \
+        container == report.bytes_payload
+
+
+def test_traced_diff_restore_reads_each_link_and_replays(tmp_path):
+    """A FULL and a DIFF of it: the restore reads and decodes both links
+    and replays the delta on the template's device, under its own span."""
+    import torch
+    from repro_torch.core.context import (CHK_DIFF, CheckpointConfig,
+                                          CheckpointContext)
+
+    cfg = CheckpointConfig(dir=str(tmp_path / "ckpt"), backend="fti",
+                           dedicated_thread=False, objstore=False,
+                           block_bytes=256)
+    w = torch.arange(1 << 14, dtype=torch.float32)
+    ctx = CheckpointContext(cfg)
+    ctx.store({"w": w}, id=1, level=1)
+    w[:10] = -1.0
+    ctx.store({"w": w}, id=2, level=1, kind=CHK_DIFF)
+    ctx.shutdown()
+    ttrace.enable()
+    ctx = CheckpointContext(cfg)
+    got = ctx.load({"w": torch.zeros_like(w)})
+    ctx.shutdown()
+    assert torch.equal(got["w"], w)
+    spans = chktrace.build_spans(ttrace.tracer().events())
+    (load,) = [s for s in spans if s["name"] == "chk.load"]
+    names = [c["name"] for c in load["children"]]
+    assert names.count("restore.read") == names.count("restore.decode") == 2
+    assert {c["args"]["ckpt_id"] for c in load["children"]
+            if c["name"] == "restore.decode"} == {1, 2}
+    assert names[-2:] == ["restore.replay", "restore.h2d"]
+
+
+def test_span_parent_links_hand_off_and_end_args():
+    ttrace.enable()
+    with ttrace.span("outer") as outer:
+        with ttrace.span("inner") as inner:
+            inner.set(bytes=12)
+            cause = ttrace.current_id()
+
+    def worker():
+        with ttrace.caused_by(cause):
+            with ttrace.span("tail"):
+                pass
+        with ttrace.span("alone"):
+            pass
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert ttrace.current_id() is None
+    b = {e["name"]: e["args"] for e in ttrace.tracer().events()
+         if e["ph"] == "B"}
+    assert "parent" not in b["outer"] and "parent" not in b["alone"]
+    assert b["inner"]["parent"] == outer.id
+    assert b["tail"]["parent"] == inner.id == cause
+    ends = [e for e in ttrace.tracer().events() if e["ph"] == "E"]
+    assert [e.get("args") for e in ends].count({"bytes": 12}) == 1
+    spans = {s["name"]: s for s in
+             chktrace.build_spans(ttrace.tracer().events())}
+    assert spans["inner"]["args"]["bytes"] == 12
+    assert [c["name"] for c in spans["inner"]["children"]] == ["tail"]
+    # a trace without parent args nests by thread, as before
+    assert [c["name"] for c in spans["outer"]["children"]] == ["inner"]
+
+
 # ------------------------------------------------------------------ #
 # health: live endpoints
 # ------------------------------------------------------------------ #
