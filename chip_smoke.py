@@ -39,7 +39,10 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    output is 1 within rtol 1e-5 in f32, one bf16 ulp in bf16) and, at
    the training shape, scores of about ±512 whose row maximum rises from
    one key tile to the next (``rising_logits``), held to the plain
-   versions as above.
+   versions as above.  ``flashattn_bwd`` (bf16) at every grouped shape
+   above, causal and not, and at the extreme logits: dq, dk and dv each
+   within 2^-7 of its largest element of the plain f32 vjp on the same
+   inputs, two launches bit-equal.
 3. The directive path at full width: a tinyllama-1.1b-shaped state
    (arXiv:2401.02385: 22 layers, d_model 2048, 32 heads / 4 KV heads, d_ff
    5632, vocab 32000, untied lm_head; 4.40 GB in f32) generated on the
@@ -59,7 +62,9 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    3.35 TB/s and the operations (the busiest integer pipe or the
    instruction dispatch rate, counted in the SASS of the hash as built;
    the attention's FLOPs over the dense bf16 peak), the attention at the
-   training shape, at the MoE training shape and at the encoder-decoder's.
+   training shape, at the MoE training shape and at the encoder-decoder's,
+   and the attention's backward at the training shape (beside the plain
+   backward and scaled_dot_product_attention's).
 5. Checkpointed training at full width: tinyllama-1.1b's TrainState
    (13.2 GB: params, mu, nu in f32) with ``REPRO_ATTN_IMPL=flash``, batch
    4 × 2048 tokens, remat, FTI level 1 with a CP-dedicated thread, in
@@ -69,8 +74,8 @@ Phases (every failure exits non-zero; nothing falls back to the CPU):
    context restores into a template that holds no device memory and runs
    step 3.  Its leaves' SHA-256 must equal run A's and the loss be
    finite; the kernels' launches (reset before, read after): flash two
-   per layer and step, blockhash2 one per card leaf of the FULL, diffpack
-   and diffunpack none.
+   per layer and step, flashattn_bwd one, blockhash2 one per card leaf of
+   the FULL, diffpack and diffunpack none.
 6. The rest of the main path, with the default ``CheckpointConfig``
    (object-store L4 on), the FTI backend and a CP-dedicated thread, on the
    same tinyllama-1.1b-shaped state (depth ``--layers``, at most
@@ -537,7 +542,8 @@ def main_path(torch, args, device, ops):
     # one pack launch per DIFF store (stores 2 and 4), one unpack launch
     # for the DIFF link the restore replays (store 4)
     want_launch = {"blockhash2": 4 * len(named), "diffpack": 2,
-                   "diffunpack": 1, "flashattn": 0}
+                   "diffunpack": 1, "flashattn": 0,
+                   "flashattn_bwd": 0}
     log(f"[main] kernel launches: stores {store_launches}, stores and "
         f"restore {launches} (expected on the card: {want_launch})")
     if device.type == "cuda" and launches != want_launch:
@@ -976,6 +982,64 @@ def check_flash_extreme(torch, device, ref, fa, gen) -> float:
     return worst_bf16
 
 
+def check_flash_bwd(torch, device, ref, fa, gen) -> float:
+    """``flashattn_bwd`` against ``ref.flash_attention_vjp_ref`` in f32 on
+    the same bf16 inputs (K and V repeated, dk and dv summed per group), at
+    every grouped shape, causal and not, and at the extreme logits: each
+    of dq, dk, dv within 2^-7 of its largest reference element, two
+    launches bit-equal.  → the worst error over the largest element."""
+    def grads(q, k, v, do, causal):
+        b, s, h, dh = q.shape
+        sk, kv = k.shape[1], k.shape[2]
+        rep = h // kv
+        dq, dk, dv = ref.flash_attention_vjp_ref(
+            *(ref.to_bh(x.float()) for x in (q, ref.repeat_kv(k, rep),
+                                             ref.repeat_kv(v, rep), do)),
+            causal=causal)
+        return (ref.from_bh(dq, b),
+                ref.from_bh(dk, b).reshape(b, sk, kv, rep, dh).sum(dim=3),
+                ref.from_bh(dv, b).reshape(b, sk, kv, rep, dh).sum(dim=3))
+
+    cases = []
+    for b, s, sk, h, kv, dh in GQA_SHAPES:
+        for causal in (True, False):
+            q = torch.randn(b, s, h, dh, generator=gen, device=device)
+            k, v = (torch.randn(b, sk, kv, dh, generator=gen, device=device)
+                    for _ in range(2))
+            cases.append((f"B{b} S{s} Sk{sk} H{h}/KV{kv} dh{dh} "
+                          f"causal={causal}", q, k, v, causal))
+    for causal in (True, False):
+        q, k, v = rising_logits(torch, 2, 2048, 32, 4, 64, gen, device)
+        cases.append((f"moving maximum causal={causal}", q, k, v, causal))
+    worst = 0.0
+    for case, q, k, v, causal in cases:
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        do = torch.randn(q.shape, generator=gen, device=device).bfloat16()
+        out, lse = fa.flash_attention_gqa_fwd(q, k, v, causal=causal, bq=4,
+                                              bk=4)
+        got = fa.flash_attention_gqa_bwd(q, k, v, lse, do,
+                                         causal=causal)
+        again = fa.flash_attention_gqa_bwd(q, k, v, lse, do,
+                                           causal=causal)
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, grads(q, k, v, do,
+                                                            causal)):
+            top = float(w.abs().max())
+            err = float((a.float() - w).abs().max())
+            if not err <= 2.0 ** -7 * top:
+                fail(f"flashattn_bwd {case}: {name} max_abs_err {err:.3g} "
+                     f"> 2^-7 of its largest element {top:.3g}")
+            errs.append(err / top)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"flashattn_bwd {case}: two launches differ")
+        worst = max(worst, *errs)
+        log(f"[check] flashattn_bwd {case}: dq, dk, dv within "
+            f"{', '.join(f'{e:.3g}' for e in errs)} of their largest "
+            f"element, two launches bit-equal")
+        del q, k, v, do, out, lse, got, again
+    return worst
+
+
 def check_flash(torch, device, ops, ref, fa) -> float:
     """flashattn against flash_attention_ref; the autograd.Function's
     gradient against autograd through the plain version; both kernels at
@@ -1330,6 +1394,57 @@ def time_flash(torch, device, ref, fa, shape) -> dict:
     return out[True]
 
 
+def time_flash_bwd(torch, device, ref, fa, shape) -> dict:
+    """flashattn_bwd at a training path's ``shape`` (bf16, causal) beside
+    its bound (10·dh FLOPs per pair of the causal triangle), the plain
+    backward the training path ran before it
+    (``ref.flash_attention_vjp_ref`` on K and V repeated) and
+    scaled_dot_product_attention's backward (``torch.autograd.grad``
+    through its output)."""
+    import torch.nn.functional as F
+
+    b, s, sk, h, kv, dh = shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    q, do = (torch.randn(b, s, h, dh, generator=gen, device=device)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, dh, generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_gqa_fwd(q, k, v, causal=True)
+    ms = device_ms(torch, lambda: fa.flash_attention_gqa_bwd(
+        q, k, v, lse, do, causal=True))
+    rep = h // kv
+    plain = device_ms(torch, lambda: ref.flash_attention_vjp_ref(
+        *(ref.to_bh(x) for x in (q, ref.repeat_kv(k, rep),
+                                 ref.repeat_kv(v, rep), do)), causal=True),
+        reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    try:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    except TypeError:                      # a torch without the argument
+        kt, vt = (x.detach().repeat_interleave(rep, dim=1).requires_grad_(
+            True) for x in (kt, vt))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = device_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    flops = 10 * dh * b * h * (s * (s + 1) // 2)
+    # q, k, v and dO read, dq, dk, dv written, lse and D once
+    moved = 2 * (3 * q.numel() + 4 * k.numel()) + 8 * b * h * s
+    times = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / BF16_FLOPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    log(f"[time] flashattn_bwd B{b} S{s} H{h}/KV{kv} dh{dh} causal: "
+        f"{ms:.4f} ms (bound {times[by]:.4f} ms by {by}: {flops:.4g} FLOPs, "
+        f"{moved} B; plain {plain:.4f} ms; scaled_dot_product_attention's "
+        f"backward {lib:.4f} ms)")
+    del q, k, v, do, out, lse, qt, kt, vt, o
+    return dict(ms=ms, plain_ms=plain, bound_ms=times[by], bound_by=by,
+                library_ms=lib, work=f"B{b} S{s} H{h}/KV{kv} dh{dh} bf16 "
+                f"causal: {flops:.4g} FLOPs, {moved} B; library: "
+                f"scaled_dot_product_attention's backward")
+
+
 # --------------------------------------------------------------------------- #
 # phases 5 and 9: checkpointed training at full width
 # --------------------------------------------------------------------------- #
@@ -1664,22 +1779,27 @@ def training_path(torch, args, device, ops, arch: str, tag: str, root: Path,
             f"loss {loss:.6f}, grad norm {gnorm:.6f}"
             + (f" (router aux {aux:.6f})" if m else ""))
     # forward + remat recompute, per layer: one attention, or three for an
-    # encoder-decoder's layer pair (encoder self, decoder self, cross)
+    # encoder-decoder's layer pair (encoder self, decoder self, cross); and
+    # one backward (bf16: the flash backward kernel) per attention
     want_per_step = 2 * cfg.n_layers * (3 if cfg.encdec else 1)
+    want_bwd = want_per_step // 2 * len(steps)
     if not all(math.isfinite(x[4]) for x in steps):
         fail("a training loss is not finite")
     if [x[:2] for x in steps] != [("A", 1), ("A", 2), ("A", 3), ("B", 1),
                                    ("B", 2), ("B", 3),
                                    ("B restarted", 3)]:
         fail(f"unexpected step sequence {[x[:2] for x in steps]}")
+    log(f"[{tag}] launches {launches}")
     if on_card and (any(x[3] != want_per_step for x in steps) or
                     launches["flashattn"] != want_per_step * len(steps) or
+                    launches["flashattn_bwd"] != want_bwd or
                     launches["blockhash2"] != n_card or
                     launches["diffpack"] or launches["diffunpack"]):
         fail(f"{tag} launches {launches} (flash per step "
              f"{[x[3] for x in steps]}): expected flashattn "
-             f"{want_per_step} per step, blockhash2 {n_card} (one FULL of "
-             f"the card leaves), no diffpack or diffunpack")
+             f"{want_per_step} per step, flashattn_bwd {want_bwd}, "
+             f"blockhash2 {n_card} (one FULL of the card leaves), no "
+             f"diffpack or diffunpack")
     t = time.time()
     got = state_digests(torch, out["state"])
     bad = [k for k in want if got.get(k) != want[k]]
@@ -1920,7 +2040,8 @@ def objstore_path(torch, args, device, ops) -> dict:
     out["launches"] = ops.launch_counts()
     ttrace.disable()
     want = {"blockhash2": 4 * len(named), "diffpack": 2,
-            "diffunpack": 2, "flashattn": 0}
+            "diffunpack": 2, "flashattn": 0,
+            "flashattn_bwd": 0}
     log(f"[obj] kernel launches over the phase: {out['launches']} (expected "
         f"on the card: {want})")
     if on_card and out["launches"] != want:
@@ -2319,7 +2440,8 @@ def serve_launches(run: dict) -> dict:
     unpack per DIFF link replayed, no attention."""
     return {"blockhash2": run["stores"] * run["n_dev"],
             "diffpack": run["diffs"], "diffunpack": run["links"],
-            "flashattn": 0}
+            "flashattn": 0,
+            "flashattn_bwd": 0}
 
 # --------------------------------------------------------------------------- #
 # phase 10: MLA served at full width, its latent cache checkpointed
@@ -2526,7 +2648,8 @@ def chaos_path(torch, args, device, ops) -> dict:
         fail(f"chaos matrix on {device}: recovery paths differ from the CPU "
              f"run's in {differ}")
     want = {"blockhash2": planned["card_leaves"], "diffpack": 0,
-            "diffunpack": 0, "flashattn": 0}
+            "diffunpack": 0, "flashattn": 0,
+            "flashattn_bwd": 0}
     log(f"[chaos] matrix on {device}: {report['passed']}/{report['total']} "
         f"passed, data loss {report['data_loss_bytes']} B, max mttr "
         f"{report['max_mttr_s']} s, recovery paths equal the CPU run's; "
@@ -2702,9 +2825,11 @@ def chaos_path(torch, args, device, ops) -> dict:
     want_flash = 2 * cfg.n_layers * RESUMED_STEPS if on_card else 0
     got = det["worker_launches"]
     if len(got) != 1 or got[0]["flashattn"] != want_flash or \
+            got[0]["flashattn_bwd"] != want_flash // 2 or \
             got[0]["diffpack"] or got[0]["diffunpack"]:
         fail(f"supervised kill: the restarted worker's launches {got}, "
-             f"expected flashattn {want_flash} and no diffpack/diffunpack")
+             f"expected flashattn {want_flash}, flashattn_bwd "
+             f"{want_flash // 2} and no diffpack/diffunpack")
     out["worker_launches"] = got[0]
     log(f"[chaos] supervised kill ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {device}): resumed from step 6, one restart, backed "
@@ -2933,10 +3058,13 @@ def mesh_path(torch, args, device, ops, reference=None) -> dict:
     check_mesh_decode(got, device)
     by_rank["train"] = [{"blockhash2": 0, "diffpack": 0, "diffunpack": 0,
                          "flashattn": sum(st["flash"] for st in
-                                          r["train"]["steps"])}
+                                          r["train"]["steps"]),
+                         "flashattn_bwd": sum(st["flash_bwd"] for st in
+                                              r["train"]["steps"])}
                         for r in src]
     total = {k: sum(c[k] for cs in by_rank.values() for c in cs)
-             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
+             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn",
+                       "flashattn_bwd")}
     log(f"[mesh] a 4-process (2, 2) store of two sharded train steps' "
         f"parameters restored bit-exact onto (1, 4) on 4 processes and "
         f"(2, 1) on 2 on {device.type} over {backend}; store world "
@@ -2955,16 +3083,19 @@ def check_mesh_training(src: list, device, reference) -> None:
         tag = f"[mesh] train rank {r['rank']}"
         for st in tr["steps"]:
             log(f"{tag} step {st['step']}: {st['s']:.3f} s, flash "
-                f"{st['flash']}, loss {st['loss']:.6f}, grad norm "
-                f"{st['grad_norm']:.6f}")
+                f"{st['flash']}, flash backward {st['flash_bwd']}, loss "
+                f"{st['loss']:.6f}, grad norm {st['grad_norm']:.6f}")
         log(f"{tag}: last step's collectives {tr['collectives_last_step']}"
             f"; peak device {tr.get('peak_bytes', 0) / 1e9:.2f} GB")
         if device.type == "cuda" and any(
                 st["flash"] != tr["designed_flash_per_step"]
+                or st["flash_bwd"] != tr["designed_flash_bwd_per_step"]
                 for st in tr["steps"]):
             fail(f"phase 13: rank {r['rank']} launched flash "
-                 f"{[st['flash'] for st in tr['steps']]} a step, the design "
-                 f"says {tr['designed_flash_per_step']}")
+                 f"{[st['flash'] for st in tr['steps']]} and its backward "
+                 f"{[st['flash_bwd'] for st in tr['steps']]} a step, the "
+                 f"design says {tr['designed_flash_per_step']} and "
+                 f"{tr['designed_flash_bwd_per_step']}")
         mine = [(st["loss"], st["grad_norm"]) for st in tr["steps"]]
         theirs = [(st["loss"], st["grad_norm"])
                   for st in src[0]["train"]["steps"]]
@@ -3084,7 +3215,8 @@ EXAMPLES_ENV = {"torch_train_checkpointed.py": {"REPRO_ATTN_IMPL": "flash"}}
 #: the code (PERF.md §6): ``blockhash2`` once per card leaf of every
 #: store a diff-capable backend (FTI) plans, ``diffpack`` once per DIFF
 #: store, ``diffunpack`` once per replayed DIFF link, ``flashattn`` twice
-#: per layer and training step (forward and the remat's recompute)
+#: per layer and training step (forward and the remat's recompute),
+#: ``flashattn_bwd`` once
 EXAMPLE_LAUNCHES = {
     # 5 FULLs of w; the rerun restores and stores nothing
     "torch_quickstart.py": {"blockhash2": 5},
@@ -3102,7 +3234,8 @@ EXAMPLE_LAUNCHES = {
     "torch_telemetry_trace.py": {"blockhash2": 1},
     # 6 stores of 36 card leaves (AdamW dirties every block: each DIFF is
     # promoted); 54 + 10 steps of 12 layers
-    "torch_train_checkpointed.py": {"blockhash2": 216, "flashattn": 1536},
+    "torch_train_checkpointed.py": {"blockhash2": 216, "flashattn": 1536,
+                                    "flashattn_bwd": 768},
 }
 #: the child's limit, its torch import and every program included
 EXAMPLES_TIMEOUT = 900
@@ -3128,7 +3261,8 @@ def examples_path(torch, args, device, ops) -> dict:
     by_program = json.loads((root / "launches.json").read_text())
     shutil.rmtree(root, ignore_errors=True)
     total = {k: sum(c[k] for c in by_program.values())
-             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn")}
+             for k in ("blockhash2", "diffpack", "diffunpack", "flashattn",
+                       "flashattn_bwd")}
     return {"launches": total, "by_program": by_program}
 
 
@@ -3325,7 +3459,8 @@ def examples_child() -> None:
 def build_kernels(build) -> dict:
     """Phase 1: every source at once → blockhash2's SASS per u32 word."""
     t = time.time()
-    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn"]
+    sources = ["blockhash2", "diffpack", "diffunpack", "flashattn",
+               "flashattn_bwd"]
     logs = build.compile_all(sources)
     log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel: "
         f"{time.time() - t:.1f} s")
@@ -3436,6 +3571,9 @@ def main() -> None:
         t = time.time()
         worst = check_kernels(torch, device, ops, ref, bh, dp)
         worst["flashattn"] = check_flash(torch, device, ops, ref, fa)
+        worst["flashattn_bwd"] = check_flash_bwd(
+            torch, device, ref, fa,
+            torch.Generator(device=device).manual_seed(SEED + 4))
         log(f"[phase] kernel checks: {time.time() - t:.1f} s")
     if 3 in phases:
         state, ids2, ids4, launches, _ = timed(
@@ -3451,6 +3589,8 @@ def main() -> None:
             torch, device, ref, fa, MOE_GQA_SHAPE)
         times["flashattn"]["at_encdec_shape"] = time_flash(
             torch, device, ref, fa, ENCDEC_GQA_SHAPE)
+        times["flashattn_bwd"] = time_flash_bwd(torch, device, ref, fa,
+                                                GQA_SHAPES[0])
         log(f"[phase] timing: {time.time() - t:.1f} s")
     if 3 in phases:
         del state
@@ -3544,6 +3684,9 @@ def main() -> None:
                        "src/repro/kernels/diffpack.py:45", "directive"),
         "flashattn": ("src/repro_torch/kernels/csrc/flashattn.cu",
                       "src/repro/kernels/flashattn.py:35", "training"),
+        "flashattn_bwd": ("src/repro_torch/kernels/csrc/flashattn_bwd.cu",
+                          "none (the reference's kernel is forward only)",
+                          "training"),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():

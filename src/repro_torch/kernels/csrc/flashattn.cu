@@ -10,6 +10,9 @@
 // (grouped-query attention; KV = H is plain multi-head); causal: s_j =
 // -1e30 where j > r; softmax over j with a running max m, denominator l and
 // accumulator acc, all f32; out_r = acc / max(l, 1e-30) in q's dtype.
+// Both kernels also write each row's log-sum-exp m + log l (natural log,
+// f32), the row statistic the backward (`flashattn_bwd.cu`) recomputes p
+// from.
 //
 // What bounds it on an H100 SXM: arithmetic.  4·dh FLOPs per (query, key)
 // pair (two products), B·H·S·Sk pairs (about half when causal), against q,
@@ -69,13 +72,10 @@
 // skipped.  The training path never launches it; the parity tests and the
 // gradient check do.
 //
-// The tensor maps come from cuTensorMapEncodeTiled, fetched from the CUDA
-// driver with cudaGetDriverEntryPointByVersion (no -lcuda at link time),
-// and reach the kernel as __grid_constant__ parameters.
-#include <cstdint>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// The wgmma, TMA and mbarrier machinery is `flashattn_tc.cuh`, shared with
+// the backward; the tensor maps reach the kernel as __grid_constant__
+// parameters.
+#include "flashattn_tc.cuh"
 
 namespace {
 
@@ -129,8 +129,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s_len,
-                 int sk_len, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int s_len, int sk_len, int causal,
+                 float scale) {
   __shared__ __align__(16) float ks[kTile * DH];
   __shared__ __align__(16) float vs[kTile * DH];
   constexpr int kPer = 16 / sizeof(T);
@@ -218,6 +219,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!live) return;
+  lse[bh * s_len + row] = m + logf(l);
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int d = 0; d < DH; d += kPer) {
@@ -230,24 +232,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s_len, int sk_len, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int s_len, int sk_len, int causal, float scale,
            cudaStream_t stream) {
   const dim3 grid(bh, (s_len + kRows - 1) / kRows);
   flash_fwd_kernel<T, DH><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_len, sk_len, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, s_len, sk_len,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_dh(const void* q, const void* k, const void* v, void* o, int bh,
-                int s_len, int sk_len, int dh, int causal, float scale,
-                cudaStream_t stream) {
+int dispatch_dh(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int s_len, int sk_len, int dh, int causal,
+                float scale, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<float, 16>(q, k, v, o, bh, s_len, sk_len, causal, scale, stream);
-    case 32: return launch<float, 32>(q, k, v, o, bh, s_len, sk_len, causal, scale, stream);
-    case 64: return launch<float, 64>(q, k, v, o, bh, s_len, sk_len, causal, scale, stream);
+    case 16: return launch<float, 16>(q, k, v, o, lse, bh, s_len, sk_len, causal, scale, stream);
+    case 32: return launch<float, 32>(q, k, v, o, lse, bh, s_len, sk_len, causal, scale, stream);
+    case 64: return launch<float, 64>(q, k, v, o, lse, bh, s_len, sk_len, causal, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -263,179 +265,18 @@ namespace tc {
 constexpr int kRowsCta = 128;           // query rows per CTA
 constexpr int kConsumers = 256;         // two warpgroups of 64 rows each
 constexpr int kThreads = kConsumers + 128;  // plus a producer warpgroup
-constexpr float kNegInf = -1e30f;
 
 template <int DH>
-struct Cfg {
-  // a panel is a column slab of at most 128 bytes per row, the widest
-  // span TMA and wgmma swizzle; dh 128 (256-byte rows) takes two panels
-  static constexpr int kSw = DH * 2 < 128 ? DH * 2 : 128;
-  static constexpr int kPanels = DH * 2 / kSw;
-  static constexpr int kPanelElems = kSw / 2;
+struct Cfg : Sw<DH> {
   static constexpr int kN = DH == 128 ? 64 : 128;     // keys per tile
   // K/V ring depth: timed in turns on an H100, 2 stages beat 3 at dh 64
   // (by ~1 %) and 3 beat 2 at dh 128 (by ~5 %); dh 16 and 32 follow dh 64
   static constexpr int kStages = DH == 128 ? 3 : 2;
   static constexpr int kQBytes = kRowsCta * DH * 2;
   static constexpr int kKVBytes = kN * DH * 2;        // one K or V tile
-  // wgmma layout type of the swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B
-  static constexpr uint64_t kLayout = kSw == 128 ? 1 : (kSw == 64 ? 2 : 3);
-  static constexpr int kSbo = 8 * kSw;                // 8-row group stride
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
 };
-
-template <int N>
-struct Mma;
-
-template <>
-struct Mma<16> {
-  // D (64 x 16, f32) (+)= A (64 x 16, from shared memory) . B (16 x 16)
-  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D (64 x 16, f32) += A (64 x 16, bf16 in registers) . B (16 x 16),
-  // B stored N-major (the transpose bit)
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<32> {
-  // D (64 x 32, f32) (+)= A (64 x 16, from shared memory) . B (16 x 32)
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D (64 x 32, f32) += A (64 x 16, bf16 in registers) . B (16 x 32),
-  // B stored N-major (the transpose bit)
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<64> {
-  // D (64 x 64, f32) (+)= A (64 x 16, from shared memory) . B (16 x 64)
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64),
-  // B stored N-major (the transpose bit)
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<128> {
-  // D (64 x 128, f32) (+)= A (64 x 16, from shared memory) . B (16 x 128)
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128),
-  // B stored N-major (the transpose bit)
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
 
 // named barrier `id` over both consumer warpgroups: wait for the other's
 // arrival, or arrive for it
@@ -444,46 +285,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout
-template <int DH>
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (Cfg<DH>::kLayout << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int DH>
@@ -498,42 +299,14 @@ struct Tile {
 template <int DH>
 __device__ __forceinline__ void issue_qk(float (&s)[Cfg<DH>::kN / 2],
                                          uint32_t q_wg, uint32_t k_s) {
-  using C = Cfg<DH>;
-  // both operands K-major as stored; a 16-column step is 32 bytes into a
-  // panel
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t off = (kk * 32) % C::kSw;
-    const uint32_t panel = (kk * 32) / C::kSw;
-    Mma<C::kN>::ss(
-        s, desc<DH>(q_wg + panel * kRowsCta * C::kSw + off, 16, C::kSbo),
-        desc<DH>(k_s + panel * C::kN * C::kSw + off, 16, C::kSbo), kk > 0);
-  }
+  issue_ss<DH, Cfg<DH>::kN>(s, q_wg, kRowsCta * Cfg<DH>::kSw, k_s);
 }
 
-// O += P V with P = hi + lo, both in registers, issued (not waited).  V is
-// N-major (dh contiguous): a 16-key step is 16 rows down; the leading
-// offset steps from one panel to the next.
+// O += P V with P = hi + lo, both in registers, issued (not waited)
 template <int DH>
 __device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
                                          const Tile<DH>& t, uint32_t v_s) {
-  using C = Cfg<DH>;
-#pragma unroll
-  for (int kk = 0; kk < C::kN / 16; ++kk) {
-    const uint64_t dv = desc<DH>(v_s + kk * 16 * C::kSw, C::kN * C::kSw,
-                                 C::kSbo);
-    Mma<DH>::rs(o, t.hi[kk], dv);
-    Mma<DH>::rs(o, t.lo[kk], dv);
-  }
-}
-
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
-  }
+  issue_rs<DH, Cfg<DH>::kN>(o, t.hi, t.lo, v_s);
 }
 
 // The online softmax in f32 on the score fragment of one tile: element
@@ -583,35 +356,14 @@ __device__ __forceinline__ float2 softmax(Tile<DH>& t, float (&m)[2],
   return make_float2(corr[0], corr[1]);
 }
 
-// p = hi + lo, both bf16: hi is p truncated to bf16 (its upper 16 bits, no
-// conversion needed), lo = bf16(p - hi) rounded to nearest (p - hi is
-// exact in f32 and below one bf16 ulp of p), so p keeps 16 significant
-// bits.  The accumulator fragment of 16 columns is the register A operand
-// of a 16-deep step as it stands.
-template <int DH>
-__device__ __forceinline__ void split(Tile<DH>& t) {
-#pragma unroll
-  for (int kk = 0; kk < Cfg<DH>::kN / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a = t.s[8 * kk + 2 * r];
-      const float c = t.s[8 * kk + 2 * r + 1];
-      const uint32_t ua = __float_as_uint(a) & 0xFFFF0000u;
-      const uint32_t uc = __float_as_uint(c) & 0xFFFF0000u;
-      t.hi[kk][r] = (ua >> 16) | uc;
-      t.lo[kk][r] =
-          pack_bf16(a - __uint_as_float(ua), c - __uint_as_float(uc));
-    }
-  }
-}
-
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int s_len, int sk_len,
-                int n_heads, int group, int causal, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int s_len, int sk_len, int n_heads, int group, int causal,
+                float scale_log2) {
   using C = Cfg<DH>;
   constexpr int kN = C::kN;
   constexpr int kStages = C::kStages;
@@ -728,7 +480,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(tile.s);
     softmax<DH>(tile, m, l, 0, r0, c0, masked(0), sk_len, causal,
                 scale_log2);
-    split<DH>(tile);
+    split<Cfg<DH>::kN>(tile.s, tile.hi, tile.lo);
     // phase t: S_t is issued with P_{t-1} V_{t-1}; the softmax of S_t runs
     // while the tensor cores do P_{t-1} V_{t-1}
     for (int t = 1; t < n_mine; ++t) {
@@ -758,7 +510,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * j + 2] *= corr.y;
         oacc[4 * j + 3] *= corr.y;
       }
-      split<DH>(tile);
+      split<Cfg<DH>::kN>(tile.s, tile.hi, tile.lo);
     }
     // the last phase: P V of the last tile
     fence_regs(oacc);
@@ -777,13 +529,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty(t));
     }
 
-    // epilogue: divide by l, round to nearest even, store (B, S, H, dh)
+    // epilogue: divide by l, round to nearest even, store (B, S, H, dh);
+    // the row's log-sum-exp, (m + log2 l) ln 2, to (B, H, S) in f32
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const int row = r0 + 8 * i;
       if (row >= s_len) continue;
+      if (c0 == 0) {
+        lse[(static_cast<int64_t>(b) * n_heads + h) * s_len + row] =
+            (m[i] + log2f(l[i])) * 0.6931471805599453f;
+      }
       const float den = fmaxf(l[i], 1e-30f);
       __nv_bfloat16* dst =
           o + ((static_cast<int64_t>(b) * s_len + row) * n_heads + h) * DH;
@@ -796,74 +553,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver through the runtime, so the
-// library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// (B, rows, heads, dh) bf16 with element strides (sb, ss, sh, 1) as a 4-d
-// tensor map whose box is one panel of `box_rows` rows of one head
-template <int DH>
-CUresult make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-                  int heads, long long sb, long long ss, long long sh,
-                  int box_rows) {
-  using C = Cfg<DH>;
-  const cuuint64_t dims[4] = {DH, static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {C::kPanelElems, static_cast<cuuint32_t>(box_rows),
-                             1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      C::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                    : (C::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                    : CU_TENSOR_MAP_SWIZZLE_32B);
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int batch, s_len, sk_len, n_heads, n_kv;
   long long qs[3], ks[3], vs[3];     // (batch, seq, head) element strides
   int causal;
   float scale;
   cudaStream_t stream;
 };
-
-// a CUresult from the tensor-map encoder comes back offset by this, to
-// tell it from a runtime error
-constexpr int kEncodeError = 100000;
 
 template <int DH>
 int launch(const Args& a) {
@@ -890,7 +589,8 @@ int launch(const Args& a) {
       static_cast<float>(static_cast<double>(a.scale) * 1.4426950408889634);
   const dim3 grid(a.batch * a.n_heads, (a.s_len + kRowsCta - 1) / kRowsCta);
   flash_tc_kernel<DH><<<grid, kThreads, C::kSmem, a.stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.s_len, a.sk_len,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.s_len,
+      a.sk_len,
       a.n_heads, a.n_heads / a.n_kv, a.causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -900,32 +600,35 @@ int launch(const Args& a) {
 }  // namespace
 
 // f32 only.  q: (bh, s_len, dh), k and v: (bh, sk_len, dh), o: (bh, s_len,
-// dh), all contiguous and 16-byte aligned; dh one of 16, 32, 64.
+// dh), all contiguous and 16-byte aligned; dh one of 16, 32, 64.  lse:
+// (bh, s_len) f32, each row's log-sum-exp of its scaled, masked scores.
 // Launches on `stream` (the caller makes the stream's device current),
 // allocates nothing; returns cudaGetLastError(), or cudaErrorInvalidValue
 // for a dh or size it does not take.
 extern "C" int flashattn_launch(const void* q, const void* k, const void* v,
-                                void* o, int bh, int s_len, int sk_len,
-                                int dh, int causal, float scale,
+                                void* o, float* lse, int bh, int s_len,
+                                int sk_len, int dh, int causal, float scale,
                                 void* stream) {
   if (bh <= 0 || s_len <= 0 || sk_len <= 0 ||
       s_len > 65535 * simt::kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return simt::dispatch_dh(q, k, v, o, bh, s_len, sk_len, dh, causal, scale,
-                           static_cast<cudaStream_t>(stream));
+  return simt::dispatch_dh(q, k, v, o, lse, bh, s_len, sk_len, dh, causal,
+                           scale, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 only.  q: (batch, s_len, n_heads, dh), k and v: (batch, sk_len, n_kv,
 // dh), each with element strides (batch, seq, head) and a contiguous last
 // dim, 16-byte aligned, every stride a multiple of 8 elements; n_heads a
 // multiple of n_kv; dh one of 16, 32, 64, 128.  o: (batch, s_len, n_heads,
-// dh), contiguous.  Launches on `stream` (the caller makes the stream's
-// device current), allocates nothing; returns cudaGetLastError(),
+// dh), contiguous; lse: (batch, n_heads, s_len) f32, each row's
+// log-sum-exp of its scaled, masked scores.  Launches on `stream` (the
+// caller makes the stream's device current), allocates nothing; returns cudaGetLastError(),
 // cudaErrorInvalidValue for arguments it does not take, or 100000 plus the
 // CUresult when a tensor map cannot be encoded.
 extern "C" int flashattn_gqa_launch(
-    const void* q, const void* k, const void* v, void* o, int batch,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int batch,
     int s_len, int sk_len, int n_heads, int n_kv, int dh, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -935,7 +638,7 @@ extern "C" int flashattn_gqa_launch(
       (s_len + tc::kRowsCta - 1) / tc::kRowsCta > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const tc::Args a{q, k, v, o, batch, s_len, sk_len, n_heads, n_kv,
+  const tc::Args a{q, k, v, o, lse, batch, s_len, sk_len, n_heads, n_kv,
                    {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
                    causal, scale, static_cast<cudaStream_t>(stream)};
   switch (dh) {

@@ -6,12 +6,15 @@ in ``ref.py``.  Nothing falls back from one to the other.
 
 Attention is differentiable: :func:`flash_attention_gqa` is a
 ``torch.autograd.Function`` whose forward is the kernel (or, on the CPU,
-the plain version) and whose backward is the exact gradient in plain
-PyTorch (``ref.flash_attention_vjp_ref`` on K and V repeated to the query
-heads, dk and dv summed over each group); :func:`flash_attention` and
+the plain version) and saves the rows' log-sum-exp.  Its
+backward depends only on what the inputs show: bf16 on the card launches
+the backward kernel (``flashattn_bwd``); f32 on the card and everything on
+the CPU take the exact gradient in plain PyTorch
+(``ref.flash_attention_vjp_ref`` on K and V repeated to the query heads,
+dk and dv summed over each group).  :func:`flash_attention` and
 :func:`flash_attention_bshd` check the reference's shape contract and go
-through it.  The JAX package has no backward kernel either: its Pallas
-kernel is forward only.
+through it.  The JAX package has no backward kernel: its Pallas kernel is
+forward only.
 
 Digest tables and packed blocks are ``torch.int32`` tensors carrying u32
 bits; :func:`u32_numpy` turns them into the ``np.uint32`` arrays the JAX
@@ -217,35 +220,58 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, bq: int, bk: int) -> torch.Tensor:
-    """The flash forward as an operator of its own: the Hopper kernel on a
-    CUDA tensor, the plain version on the CPU, and a shape-only fake
-    implementation under a fake-tensor trace (the dry-run), so a trace
-    never runs the plain version in the kernel's place."""
+                         causal: bool, bq: int, bk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as an operator of its own → (out, lse (B, H, S)
+    f32): the Hopper kernel on a CUDA tensor, the plain version on the CPU,
+    and a shape-only fake implementation under a fake-tensor trace (the
+    dry-run), so a trace never runs the plain version in the kernel's
+    place."""
     if q.is_cuda:
-        return fa.flash_attention_gqa(q, k, v, causal=causal, bq=bq, bk=bk)
+        return fa.flash_attention_gqa_fwd(q, k, v, causal=causal, bq=bq,
+                                          bk=bk)
     _check_device(q)
     fa.check_shapes_gqa(q, k, v, bq, bk)
-    return ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    return ref.flash_attention_gqa_lse_ref(q, k, v, causal=causal)
 
 
 @_flash_attention_fwd.register_fake
 def _flash_attention_fwd_fake(q, k, v, causal, bq, bk):
     fa.check_shapes_gqa(q, k, v, bq, bk)
-    return torch.empty_like(q, memory_format=torch.contiguous_format)
+    b, s, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, s), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lse: torch.Tensor, dout: torch.Tensor, causal: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 flash backward on the card as an operator of its own →
+    (dq, dk, dv), with a shape-only fake implementation for a trace."""
+    return fa.flash_attention_gqa_bwd(q, k, v, lse, dout, causal=causal)
+
+
+@_flash_attention_bwd.register_fake
+def _flash_attention_bwd_fake(q, k, v, lse, dout, causal):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
 
 
 class _FlashAttentionGQA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, bq, bk):
-        out = _flash_attention_fwd(q, k, v, causal, bq, bk)
-        ctx.save_for_backward(q, k, v)
+        out, lse = _flash_attention_fwd(q, k, v, causal, bq, bk)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
+        if q.is_cuda and q.dtype == torch.bfloat16:
+            dq, dk, dv = _flash_attention_bwd(q, k, v, lse, dout, ctx.causal)
+            return dq, dk, dv, None, None, None
         b, s, h, dh = q.shape
         sk, kv = k.shape[1], k.shape[2]
         rep = h // kv
@@ -297,7 +323,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
     return {"blockhash2": bh.LAUNCHES.n, "diffpack": dp.LAUNCHES.n,
-            "diffunpack": dp.UNPACK_LAUNCHES.n, "flashattn": fa.LAUNCHES.n}
+            "diffunpack": dp.UNPACK_LAUNCHES.n, "flashattn": fa.LAUNCHES.n,
+            "flashattn_bwd": fa.BWD_LAUNCHES.n}
 
 
 def reset_launch_counts() -> None:
@@ -305,6 +332,7 @@ def reset_launch_counts() -> None:
     dp.LAUNCHES.reset()
     dp.UNPACK_LAUNCHES.reset()
     fa.LAUNCHES.reset()
+    fa.BWD_LAUNCHES.reset()
 
 
 def dirty_indices(h_new: np.ndarray, h_old: Optional[np.ndarray]

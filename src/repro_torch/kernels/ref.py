@@ -10,8 +10,9 @@ masked to 32 bits after every multiply and add; each 32×32-bit multiply
 is split into 16-bit halves so no int64 product overflows.
 
 Attention (:func:`flash_attention_ref`) is the function the flash kernel
-computes, written as one softmax over the whole key axis in f32; its
-exact gradient is :func:`flash_attention_vjp_ref`.  The grouped layout's
+computes, written as one softmax over the whole key axis in f32 (with the
+rows' log-sum-exp, :func:`flash_attention_lse_ref`); its exact gradient is
+:func:`flash_attention_vjp_ref`.  The grouped layout's
 plain version (:func:`flash_attention_gqa_ref`) repeats the KV heads and
 calls it.
 """
@@ -99,29 +100,42 @@ def attention_scale(dh: int) -> float:
 
 
 def _probs(q32: torch.Tensor, k32: torch.Tensor, causal: bool, scale: float
-           ) -> torch.Tensor:
+           ) -> tuple:
     """Unnormalised softmax numerators ``exp(s - max s)`` of the f32 scores
-    (masked at ``NEG_INF``) → ``(p, l)`` with ``l`` the row sums."""
+    (masked at ``NEG_INF``) → ``(p, l, m)`` with ``l`` the row sums and
+    ``m`` the row maxima."""
     s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
     if causal:
         sq, sk = q32.shape[-2], k32.shape[-2]
         pos_q = torch.arange(sq, device=q32.device)
         pos_k = torch.arange(sk, device=q32.device)
         s = torch.where(pos_k[None, :] <= pos_q[:, None], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return p, p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return p, p.sum(dim=-1, keepdim=True), m
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
-    """(BH, S, dh) × (BH, Sk, dh) × (BH, Sk, dh) → (BH, S, dh) in q's dtype.
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True):
+    """(BH, S, dh) × (BH, Sk, dh) × (BH, Sk, dh) → ``(out, lse)``: out
+    (BH, S, dh) in q's dtype and each query row's log-sum-exp of its
+    scaled, masked scores, ``m + log l``, (BH, S) in f32 (the row statistic
+    the flash backward recomputes the softmax from).
 
     Scores ``q·kᵀ/sqrt(dh)`` in f32, causal mask at -1e30 (key position ≤
     query position, both from 0), softmax in f32, the denominator floored
     at 1e-30, ``p·v`` in f32."""
     q32, k32, v32 = q.float(), k.float(), v.float()
-    p, l = _probs(q32, k32, causal, attention_scale(q.shape[-1]))
-    return (torch.matmul(p, v32) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    p, l, m = _probs(q32, k32, causal, attention_scale(q.shape[-1]))
+    out = (torch.matmul(p, v32) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """(BH, S, dh) × (BH, Sk, dh) × (BH, Sk, dh) → (BH, S, dh) in q's
+    dtype: :func:`flash_attention_lse_ref`'s output."""
+    return flash_attention_lse_ref(q, k, v, causal=causal)[0]
 
 
 def to_bh(x: torch.Tensor) -> torch.Tensor:
@@ -146,16 +160,25 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, kv * n_rep, dh)
 
 
+def flash_attention_gqa_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True):
+    """(B, S, H, dh) × (B, Sk, KV, dh) × (B, Sk, KV, dh) → ``(out, lse)``:
+    out (B, S, H, dh) in q's dtype and the rows' log-sum-exp (B, H, S) in
+    f32; the KV heads repeated to H, then :func:`flash_attention_lse_ref`
+    per batch·head."""
+    b, s, h, _ = q.shape
+    rep = h // k.shape[2]
+    o, lse = flash_attention_lse_ref(to_bh(q), to_bh(repeat_kv(k, rep)),
+                                     to_bh(repeat_kv(v, rep)), causal=causal)
+    return from_bh(o, b), lse.reshape(b, h, s)
+
+
 def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True
                             ) -> torch.Tensor:
     """(B, S, H, dh) × (B, Sk, KV, dh) × (B, Sk, KV, dh) → (B, S, H, dh) in
-    q's dtype: the KV heads repeated to H, then :func:`flash_attention_ref`
-    per batch·head."""
-    rep = q.shape[2] // k.shape[2]
-    o = flash_attention_ref(to_bh(q), to_bh(repeat_kv(k, rep)),
-                            to_bh(repeat_kv(v, rep)), causal=causal)
-    return from_bh(o, q.shape[0])
+    q's dtype: :func:`flash_attention_gqa_lse_ref`'s output."""
+    return flash_attention_gqa_lse_ref(q, k, v, causal=causal)[0]
 
 
 def flash_attention_vjp_ref(q: torch.Tensor, k: torch.Tensor,
@@ -177,7 +200,7 @@ def flash_attention_vjp_ref(q: torch.Tensor, k: torch.Tensor,
         sl = slice(lo, min(bh, lo + step))
         q32, k32, v32 = q[sl].float(), k[sl].float(), v[sl].float()
         do32 = dout[sl].float()
-        p, l = _probs(q32, k32, causal, scale)
+        p, l, _ = _probs(q32, k32, causal, scale)
         p = p / torch.clamp(l, min=1e-30)
         dv[sl] = torch.matmul(p.transpose(-1, -2), do32).to(v.dtype)
         dp = torch.matmul(do32, v32.transpose(-1, -2))

@@ -239,7 +239,7 @@ def designed_launches(named: Dict[str, Any], deltas: Dict[str, np.ndarray],
     cap = max(1, MAX_PACK_BYTES // block_bytes)
     return {"blockhash2": stores * hashed,
             "diffpack": -(-int(rows) // cap) if deltas else 0,
-            "diffunpack": 0, "flashattn": 0}
+            "diffunpack": 0, "flashattn": 0, "flashattn_bwd": 0}
 
 
 def gloo_cuda_collectives(device: torch.device) -> Dict[str, str]:
@@ -390,7 +390,8 @@ def train(args, model, mesh, params, device) -> Tuple[Any, Dict[str, Any]]:
     moments also sharded over data), the batches of ``next_batch`` from
     ``args.train_seed`` on the data axis → (the trained parameter
     ``DTensor``s, a report: per step the loss, the global gradient norm,
-    seconds, flash launches, and the last step's collectives)."""
+    seconds, flash and flash backward launches, and the last step's
+    collectives)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.data.synthetic import (data_state_struct,
@@ -431,12 +432,13 @@ def train(args, model, mesh, params, device) -> Tuple[Any, Dict[str, Any]]:
             last = i == args.train_steps - 1
             debug = CommDebugMode() if last else contextlib.nullcontext()
             _sync(device)
-            n0, t0 = fa.LAUNCHES.n, time.time()
+            n0, b0, t0 = fa.LAUNCHES.n, fa.BWD_LAUNCHES.n, time.time()
             with debug:
                 state, met = step_fn(state, batch)
             _sync(device)
             steps.append({"step": int(state.step), "s": time.time() - t0,
                           "flash": fa.LAUNCHES.n - n0,
+                          "flash_bwd": fa.BWD_LAUNCHES.n - b0,
                           "loss": float(met["loss"]),
                           "grad_norm": float(met["grad_norm"])})
             state = state._replace(data_state=next_ds)
@@ -446,7 +448,8 @@ def train(args, model, mesh, params, device) -> Tuple[Any, Dict[str, Any]]:
                   flatten_named(state.opt.mu).items()}
     report = {"steps": steps, "collectives_last_step": comm,
               "mu_placements": placements,
-              "designed_flash_per_step": 2 * cfg.n_layers}
+              "designed_flash_per_step": 2 * cfg.n_layers,
+              "designed_flash_bwd_per_step": cfg.n_layers}
     if device.type == "cuda":
         report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
         torch.use_deterministic_algorithms(False)

@@ -142,7 +142,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     qkv = x[:4096].reshape(2, 32, 64)
     ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {"blockhash2": 0, "diffpack": 0,
-                                   "diffunpack": 0, "flashattn": 0}
+                                   "diffunpack": 0, "flashattn": 0,
+                                   "flashattn_bwd": 0}
     # the kernel wrappers themselves refuse CPU tensors: no silent path
     with pytest.raises(ValueError, match="CUDA tensor"):
         bh.blockhash2(x, 256)

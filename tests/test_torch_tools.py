@@ -122,4 +122,4 @@ def test_launch_train_keep_last_full_and_launch_counts(tmp_path):
     assert sorted(p.name for p in ckpts.glob("ckpt-*")) == ["ckpt-9"]
     counts = [json.loads(p.read_text()) for p in d.glob("launches-*.json")]
     assert counts == [{"blockhash2": 0, "diffpack": 0, "diffunpack": 0,
-                       "flashattn": 0}]
+                       "flashattn": 0, "flashattn_bwd": 0}]
